@@ -1,0 +1,251 @@
+"""The execution API of the MF training step: pluggable loss / row-update /
+negative-sampling implementations behind one registry surface, under the
+same names as ``src/repro/core/engine.py``.
+
+A :class:`StepEngine` bundles the three decisions a training step makes:
+
+  * **loss**: ``fused`` (the residual-reuse autograd Function of
+    ``core/losses.py``), ``autodiff`` (plain autograd), or ``pallas``.  The
+    port keeps the registry key ``pallas`` so a config such as
+    ``MF_100M_PALLAS`` means the same in both packages; here it names the
+    hand-written CUDA kernels (``csrc/ccl_stats.cu`` forward,
+    ``csrc/ccl_bwd.cu`` backward), whose plain versions run on CPU tensors.
+  * **row update**: ``scatter_add`` (the sorted, fixed-order segment sum in
+    plain PyTorch) or ``pallas`` (the same update through the gather-FMA
+    CUDA kernel, ``csrc/gather_fma.cu``).  Each has a ``row_update_many``
+    form that applies all of a step's gradient groups in one call (one
+    kernel launch for ``pallas``).
+  * **sampler**: ``uniform``, ``tile`` (the §4.2 resident tile) or ``auto``
+    (tile when the state carries one).
+
+Names the port does not have yet raise the reference's ``ValueError``,
+listing what the port has.  Per-example ``(B, n, K)`` negatives only; the
+step-shared layout and masks wait for the LM slice.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, NamedTuple, Optional, Protocol, runtime_checkable
+
+import torch
+
+from repro_torch.core import samplers
+from repro_torch.core.losses import ccl_loss_autodiff, ccl_loss_fused
+from repro_torch.core.tiling import concat_groups
+from repro_torch.kernels.ops import (
+    fused_rows_update,
+    make_ccl_loss_kernel,
+    sparse_row_update,
+)
+
+LossFn = Callable[..., torch.Tensor]
+UpdateFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor, float], torch.Tensor]
+UpdateManyFn = Callable[[torch.Tensor, list, float], torch.Tensor]
+
+LOSS_IMPLS: dict[str, LossFn] = {}
+UPDATE_IMPLS: dict[str, UpdateFn] = {}
+UPDATE_MANY_IMPLS: dict[str, UpdateManyFn] = {}
+SAMPLERS: dict[str, "NegativeSampler"] = {}
+
+
+def register_loss(name: str):
+    """Decorator: register a LossFn under ``name`` in LOSS_IMPLS."""
+    def deco(fn: LossFn) -> LossFn:
+        LOSS_IMPLS[name] = fn
+        return fn
+    return deco
+
+
+def register_update(name: str):
+    """Decorator: register an UpdateFn under ``name`` in UPDATE_IMPLS."""
+    def deco(fn: UpdateFn) -> UpdateFn:
+        UPDATE_IMPLS[name] = fn
+        return fn
+    return deco
+
+
+def register_sampler(name: str):
+    """Register a :class:`NegativeSampler` class or instance under ``name``."""
+    def deco(obj):
+        SAMPLERS[name] = obj() if isinstance(obj, type) else obj
+        return obj
+    return deco
+
+
+class SampleContext(NamedTuple):
+    """Everything a sampler may draw from: the live item table and the
+    resident tile (or None)."""
+
+    table: torch.Tensor                          # (I, K)
+    tile: Optional[samplers.TileState] = None
+
+
+class NegSample(NamedTuple):
+    """One draw: global ids ``(B, n)``, their embeddings ``(B, n, K)``, the
+    context (callers read their tile back from ``state.tile``), and for
+    tile-sourced draws the tile-local slots that let the step slot-reduce
+    the negatives' gradients."""
+
+    ids: torch.Tensor
+    embs: torch.Tensor
+    state: SampleContext
+    local_idx: Optional[torch.Tensor] = None
+
+
+@runtime_checkable
+class NegativeSampler(Protocol):
+    """``sample(state, gen, shape) -> NegSample``: ``gen`` is the step's
+    ``torch.Generator`` for this draw and ``shape`` is ``(B, n)``."""
+
+    name: str
+
+    def sample(self, state: SampleContext, gen: torch.Generator,
+               shape: tuple[int, ...]) -> NegSample:
+        ...
+
+
+@register_sampler("uniform")
+class UniformSampler:
+    """Uniform over the whole item space, even when a tile exists."""
+
+    name = "uniform"
+
+    def sample(self, state, gen, shape):
+        ids = samplers.sample_uniform(gen, state.table.shape[0], shape)
+        return NegSample(ids, state.table[ids], state)
+
+
+@register_sampler("tile")
+class TileSampler:
+    """HEAT §4.2 random tiling: draw from the resident tile by local slot;
+    the rows come from the tile copy, not the table."""
+
+    name = "tile"
+
+    def sample(self, state, gen, shape):
+        tile = state.tile
+        if tile is None:
+            raise ValueError(
+                "sampler='tile' requires a resident tile in the sample "
+                "context (cfg.tile_size > 0)")
+        local = torch.randint(0, tile.tile_ids.shape[0], tuple(shape),
+                              generator=gen, device=gen.device)
+        return NegSample(tile.tile_ids[local], tile.tile_emb[local], state,
+                         local_idx=local)
+
+
+@register_sampler("auto")
+class AutoSampler:
+    """Tile when the context carries one, else uniform (the default)."""
+
+    name = "auto"
+
+    def sample(self, state, gen, shape):
+        impl = SAMPLERS["tile" if state.tile is not None else "uniform"]
+        return impl.sample(state, gen, shape)
+
+
+@dataclasses.dataclass(frozen=True)
+class StepEngine:
+    """One execution backend for the sampled objective."""
+
+    backend: str                 # loss implementation name
+    update_impl: str             # row-update implementation name
+    sampler_name: str            # negative-sampling strategy name
+    loss_fn: LossFn = dataclasses.field(compare=False)
+    row_update: UpdateFn = dataclasses.field(compare=False)
+    row_update_many: UpdateManyFn = dataclasses.field(compare=False)
+    sampler: NegativeSampler = dataclasses.field(compare=False)
+
+    @property
+    def name(self) -> str:
+        return f"{self.backend}+{self.update_impl}+{self.sampler_name}"
+
+
+def _per_example(neg_e, mask, backend: str) -> None:
+    if neg_e.dim() != 3 or mask is not None:
+        raise NotImplementedError(
+            f"backend={backend!r}: step-shared negatives and masks belong to "
+            "the LM slice of the port (ROADMAP.md, queue A, item 7)")
+
+
+@register_loss("fused")
+def _loss_fused(user_e, pos_e, neg_e, *, mu, theta, similarity, mask=None):
+    _per_example(neg_e, mask, "fused")
+    return ccl_loss_fused(user_e, pos_e, neg_e, mu, theta, similarity)
+
+
+@register_loss("autodiff")
+def _loss_autodiff(user_e, pos_e, neg_e, *, mu, theta, similarity, mask=None):
+    _per_example(neg_e, mask, "autodiff")
+    return ccl_loss_autodiff(user_e, pos_e, neg_e, mu, theta, similarity)
+
+
+@register_loss("pallas")
+def _loss_pallas(user_e, pos_e, neg_e, *, mu, theta, similarity, mask=None):
+    if similarity != "cosine":
+        raise ValueError(
+            "backend='pallas' implements cosine similarity only "
+            f"(got similarity={similarity!r})")
+    _per_example(neg_e, mask, "pallas")
+    return make_ccl_loss_kernel(mu, theta)(user_e, pos_e, neg_e)
+
+
+@register_update("scatter_add")
+def _update_scatter_add(table, ids, grads, lr):
+    return sparse_row_update(table, ids, grads, lr, use_kernel=False)
+
+
+@register_update("pallas")
+def _update_pallas(table, ids, grads, lr):
+    return sparse_row_update(table, ids, grads, lr, use_kernel=True)
+
+
+def _update_scatter_add_many(table, pairs, lr):
+    """All of a step's gradient groups in one sorted segment-sum update."""
+    ids, grads = concat_groups(pairs)
+    return sparse_row_update(table, ids, grads, lr, use_kernel=False)
+
+
+def _update_pallas_many(table, pairs, lr):
+    """Single-launch fused path (§3.1/§4.5): one cross-group sort and one
+    gather-FMA kernel launch for the whole step."""
+    return fused_rows_update(table, pairs, lr, use_kernel=True)
+
+
+UPDATE_MANY_IMPLS["scatter_add"] = _update_scatter_add_many
+UPDATE_MANY_IMPLS["pallas"] = _update_pallas_many
+
+
+def available_backends() -> dict[str, tuple[str, ...]]:
+    """The advertised combination matrix (for docs, tests)."""
+    return {"backend": tuple(LOSS_IMPLS), "update_impl": tuple(UPDATE_IMPLS),
+            "sampler": tuple(SAMPLERS)}
+
+
+def resolve_engine(cfg=None, *, backend: Optional[str] = None,
+                   update_impl: Optional[str] = None,
+                   sampler: Optional[str] = None) -> StepEngine:
+    """Single entry point: config fields -> StepEngine (kwargs override cfg)."""
+    backend = backend or (getattr(cfg, "backend", None) or "fused")
+    update_impl = update_impl or (getattr(cfg, "update_impl", None)
+                                  or "scatter_add")
+    sampler = sampler or (getattr(cfg, "sampler", None) or "auto")
+    if backend not in LOSS_IMPLS:
+        raise ValueError(f"unknown backend {backend!r}; "
+                         f"available: {sorted(LOSS_IMPLS)}")
+    if update_impl not in UPDATE_IMPLS:
+        raise ValueError(f"unknown update_impl {update_impl!r}; "
+                         f"available: {sorted(UPDATE_IMPLS)}")
+    if sampler not in SAMPLERS:
+        raise ValueError(f"unknown sampler {sampler!r}; "
+                         f"available: {sorted(SAMPLERS)}")
+    if backend == "pallas" and getattr(cfg, "similarity", "cosine") != "cosine":
+        raise ValueError(
+            "backend='pallas' implements cosine similarity only "
+            f"(cfg.similarity={cfg.similarity!r})")
+    return StepEngine(backend=backend, update_impl=update_impl,
+                      sampler_name=sampler, loss_fn=LOSS_IMPLS[backend],
+                      row_update=UPDATE_IMPLS[update_impl],
+                      row_update_many=UPDATE_MANY_IMPLS[update_impl],
+                      sampler=SAMPLERS[sampler])

@@ -1,0 +1,112 @@
+"""Cosine Contrastive Loss (CCL, SimpleX Eq. 3) with HEAT's aggressive data
+reuse (paper §4.4), as a ``torch.autograd.Function``.
+
+Operator-level autograd recomputes ``sum(S_u^2)``, ``sum(T_i^2)`` and
+``sum(S_u T_i)`` when it backpropagates through the cosine similarity, though
+the forward already produced them.  :class:`CCLFused` saves the normalized
+user and positive rows, the raw negatives, the inverse norms and both
+similarities, and its backward is the closed-form Eq. 4/5 contraction in
+normalized form: nothing is recomputed.  Paper Eq. 5 is printed with a sign
+that contradicts Eq. 4; the backward uses the correct sign, as the reference
+``src/repro/core/losses.py`` does.
+
+:func:`ccl_loss_autodiff` keeps the plain-autograd version as the oracle.
+The weighted/shared ``ccl_loss_fused_w``, the SimpleX bmm, MSE and BPR
+baselines wait for the LM slice.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.similarity import (
+    cosine_from_stats,
+    cosine_from_stats_with_norms,
+    dot_from_stats,
+    pair_stats,
+)
+
+
+def _ccl_rows(pos_sim, neg_sim, mu: float, theta: float):
+    """Per-row Eq. 3 losses: (1 - x_ui) + mu/|N| * sum_j relu(x_uj - theta)."""
+    neg_part = torch.clamp_min(neg_sim - theta, 0.0)
+    return (1.0 - pos_sim) + (mu / neg_sim.shape[-1]) * neg_part.sum(-1)
+
+
+def _sims(res, similarity: str):
+    if similarity == "cosine":
+        return cosine_from_stats(res)
+    if similarity == "dot":
+        return dot_from_stats(res)
+    raise ValueError(f"unknown similarity {similarity!r}")
+
+
+class CCLFused(torch.autograd.Function):
+    """Mean CCL over (user, positive, n negatives) rows with the analytic
+    Eq. 4/5 backward from saved residuals (``src/repro/core/losses.py``
+    ``_ccl_fwd``/``_ccl_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, user, pos, negs, mu: float, theta: float,
+                similarity: str):
+        if similarity not in ("cosine", "dot"):
+            raise ValueError(f"unknown similarity {similarity!r}")
+        res = pair_stats(user, pos, negs)
+        ctx.mu, ctx.theta, ctx.similarity = mu, theta, similarity
+        if similarity == "dot":
+            pos_sim, neg_sim = dot_from_stats(res)
+            ctx.save_for_backward(user, pos, negs, neg_sim)
+            return _ccl_rows(pos_sim, neg_sim, mu, theta).mean()
+        pos_sim, neg_sim, inv_u, inv_p, inv_n = cosine_from_stats_with_norms(res)
+        # The (B, n, K) negatives stay raw (a normalized copy would be one
+        # more pass over the largest tensor); inv_n folds their norm in.
+        u_hat = user * inv_u[:, None]
+        p_hat = pos * inv_p[:, None]
+        ctx.save_for_backward(u_hat, p_hat, negs, inv_u, inv_p, inv_n,
+                              pos_sim, neg_sim)
+        return _ccl_rows(pos_sim, neg_sim, ctx.mu, ctx.theta).mean()
+
+    @staticmethod
+    def backward(ctx, g):
+        mu, theta = ctx.mu, ctx.theta
+        if ctx.similarity == "dot":
+            user, pos, negs, neg_sim = ctx.saved_tensors
+            batch, n = neg_sim.shape
+            d_ps = (-g / batch) * torch.ones(batch, dtype=user.dtype,
+                                             device=user.device)
+            d_ns = (g * mu / (n * batch)) * (neg_sim > theta).to(user.dtype)
+            grad_u = d_ps[:, None] * pos + torch.einsum("bn,bnk->bk", d_ns, negs)
+            grad_p = d_ps[:, None] * user
+            grad_n = d_ns[:, :, None] * user[:, None, :]
+            return grad_u, grad_p, grad_n, None, None, None
+        u_hat, p_hat, negs, inv_u, inv_p, inv_n, pos_sim, neg_sim = \
+            ctx.saved_tensors
+        batch, n = neg_sim.shape
+        d_ps = (-g / batch) * torch.ones(batch, dtype=u_hat.dtype,
+                                         device=u_hat.device)
+        d_ns = (g * mu / (n * batch)) * (neg_sim > theta).to(u_hat.dtype)
+        # Eq. 4: d cos(u,i)/du = (i_hat - cos * u_hat) / ||u||; the negatives'
+        # i_hat is folded into the contraction coefficient (raw negs * inv_n).
+        wn = d_ns * inv_n                                         # (B, n)
+        coeff = d_ps * pos_sim + torch.sum(d_ns * neg_sim, dim=-1)
+        grad_u = (inv_u[:, None] * (d_ps[:, None] * p_hat - coeff[:, None] * u_hat)
+                  + torch.einsum("bn,bnk->bk", wn * inv_u[:, None], negs))
+        # Eq. 5 (sign corrected): d cos(u,i)/di = (u_hat - cos * i_hat) / ||i||
+        grad_p = (d_ps * inv_p)[:, None] * (u_hat - pos_sim[:, None] * p_hat)
+        grad_n = (wn[:, :, None] * u_hat[:, None, :]
+                  - (wn * neg_sim * inv_n)[:, :, None] * negs)
+        return grad_u, grad_p, grad_n, None, None, None
+
+
+def ccl_loss_fused(user, pos, negs, mu: float = 1.0, theta: float = 0.0,
+                   similarity: str = "cosine"):
+    """CCL loss over user (B, K), pos (B, K), negs (B, n, K) -> scalar mean,
+    with the residual-reuse backward of :class:`CCLFused`."""
+    return CCLFused.apply(user, pos, negs, float(mu), float(theta), similarity)
+
+
+def ccl_loss_autodiff(user, pos, negs, mu: float = 1.0, theta: float = 0.0,
+                      similarity: str = "cosine"):
+    """Same math through plain autograd (no residual reuse): the baseline and
+    the oracle."""
+    ps, ns = _sims(pair_stats(user, pos, negs), similarity)
+    return _ccl_rows(ps, ns, mu, theta).mean()

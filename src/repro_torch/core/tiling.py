@@ -1,0 +1,55 @@
+"""Random-tiling support: the sorted-intersection tile write-through and the
+deterministic segment sum it and the slot reduction share.
+
+CUDA's ``index_add_``, ``scatter_add_`` and ``index_put_(accumulate=True)``
+add duplicate rows with atomics in a run-to-run order.  :func:`segment_sum`
+instead stably sorts the targets and sums each run sequentially
+(``segment_reduce``), so the same inputs give the same bits on every run and
+every device.  Algorithm 1 (``tune_tiling``) and its hardware model wait for
+a later slice.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def concat_groups(groups):
+    """Flatten and concatenate ``[(ids, grads), ...]`` gradient groups into
+    one ``(ids (B,), grads (B, K))`` pair."""
+    ids = torch.cat([i.reshape(-1) for i, _ in groups])
+    grads = torch.cat([g.reshape(-1, g.shape[-1]) for _, g in groups])
+    return ids, grads
+
+
+def segment_sum(idx, values, num_segments: int):
+    """``out[s] = sum(values[i] for i with idx[i] == s)``, summed in the
+    order of ``i``: (num_segments, K) from idx (M,) in ``[0, num_segments]``
+    and values (M, K).  Entries with ``idx == num_segments`` are dropped.
+    Sort-based, with no atomics and no host sync."""
+    order = torch.argsort(idx, stable=True)
+    bounds = torch.searchsorted(
+        idx[order], torch.arange(num_segments + 2, dtype=idx.dtype,
+                                 device=idx.device))
+    sums = torch.segment_reduce(values[order], "sum", lengths=bounds.diff(),
+                                axis=0, unsafe=True)
+    return sums[:num_segments]
+
+
+def tile_write_through(tile_ids, tile_emb, ids, grads, lr: float):
+    """Apply ``-lr * grads`` addressed by *global* item id to the resident
+    tile copy; returns the new ``tile_emb``.
+
+    Each update id is located by binary search against the sorted tile ids;
+    hits add into their tile row (duplicates accumulate, matching the
+    table's scatter-add semantics) and misses are dropped.  ``tile_ids``
+    must be distinct, in any order."""
+    ids = ids.reshape(-1)
+    g = grads.reshape(-1, grads.shape[-1])
+    n1 = tile_ids.shape[0]
+    order = torch.argsort(tile_ids)
+    sorted_ids = tile_ids[order]
+    slot = torch.searchsorted(sorted_ids, ids)
+    slot_c = torch.clamp_max(slot, n1 - 1)
+    hit = sorted_ids[slot_c] == ids
+    target = torch.where(hit, order[slot_c], torch.full_like(slot_c, n1))
+    return tile_emb + segment_sum(target, (-lr * g).to(tile_emb.dtype), n1)

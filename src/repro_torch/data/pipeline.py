@@ -1,0 +1,104 @@
+"""Synthetic implicit-feedback CF data (the CF half of
+``src/repro/data/pipeline.py``).
+
+Every batch is a pure function of (seed, step): :func:`cf_batch_device`
+draws from a ``torch.Generator`` seeded with ``fold_in(fold_in(seed, step),
+BATCH_STREAM)`` (``repro_torch.core.mf.fold_in``, a SplitMix64 mix — never
+CPython ``hash``, whose string hashes are salted per process).  A run
+restarted at step N therefore sees exactly the batches it would have seen.
+The dataset's ``train_pos`` is uploaded once (:func:`device_cf_dataset`), so
+steady-state training copies nothing from the host per step.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.core.mf import Batch, fold_in, generator
+
+#: salt separating the batch draw from the step's own draws (which use
+#: ``fold_in(seed, step)`` directly).
+BATCH_STREAM = 0x0BA7C4
+
+
+@dataclasses.dataclass(frozen=True)
+class CFDataset:
+    """Dense interaction matrix view of a synthetic implicit-feedback set."""
+
+    num_users: int
+    num_items: int
+    train_pos: np.ndarray       # (num_users, max_train) int32, -1 padded
+    test_pos: np.ndarray        # (num_users, max_test) int32, -1 padded
+
+
+def synth_cf_dataset(num_users: int, num_items: int, *, seed: int = 0,
+                     interactions_per_user: int = 20, num_clusters: int = 16,
+                     test_frac: float = 0.2) -> CFDataset:
+    """Clustered power-law interactions: user u prefers items from its
+    cluster's popularity-ranked pool, so CF signal is recoverable.  The same
+    numpy draws as the reference's ``synth_cf_dataset``, so both packages
+    build the identical dataset from one seed."""
+    rng = np.random.default_rng(seed)
+    user_cluster = rng.integers(0, num_clusters, num_users)
+    item_cluster = rng.integers(0, num_clusters, num_items)
+    pools = [np.where(item_cluster == c)[0] for c in range(num_clusters)]
+    pools = [p if len(p) else np.arange(num_items) for p in pools]
+
+    n_test = max(int(interactions_per_user * test_frac), 1)
+    n_train = interactions_per_user - n_test
+    train = np.full((num_users, n_train), -1, np.int32)
+    test = np.full((num_users, n_test), -1, np.int32)
+    for u in range(num_users):
+        pool = pools[user_cluster[u]]
+        w = 1.0 / np.arange(1, len(pool) + 1)
+        w /= w.sum()
+        k = min(interactions_per_user, len(pool))
+        items = rng.choice(pool, size=k, replace=False, p=w)
+        train[u, :max(k - n_test, 0)] = items[:max(k - n_test, 0)]
+        test[u, :min(n_test, k)] = items[max(k - n_test, 0):k]
+    return CFDataset(num_users, num_items, train, test)
+
+
+@dataclasses.dataclass(frozen=True)
+class DeviceCFDataset:
+    """Device-resident view of a :class:`CFDataset`: ``train_pos`` (int64)
+    lives on the device the batches are drawn on."""
+
+    num_users: int
+    num_items: int
+    train_pos: torch.Tensor
+
+
+def device_cf_dataset(ds: CFDataset, device) -> DeviceCFDataset:
+    """Upload ``train_pos`` once, ahead of the epoch.  Raises when every
+    user is empty (every batch row would be fallback noise)."""
+    if ds.num_users > 0 and not (ds.train_pos >= 0).any():
+        raise ValueError("every user has zero train interactions — an "
+                         "offline device view would sample pure fallback noise")
+    return DeviceCFDataset(ds.num_users, ds.num_items,
+                           torch.as_tensor(ds.train_pos, dtype=torch.int64,
+                                           device=device))
+
+
+def cf_batch_device(ds: DeviceCFDataset, seed: int, step: int,
+                    batch_size: int) -> Batch:
+    """Users uniform over the dataset and one train positive each, drawn on
+    the dataset's device; pure in (seed, step).
+
+    A drawn padding slot (-1) falls back to the user's column 0; a user with
+    no positive at all falls back to a uniform item, as in the reference."""
+    train_pos = ds.train_pos
+    gen = generator(fold_in(fold_in(seed, step), BATCH_STREAM),
+                    train_pos.device)
+    users = torch.randint(0, ds.num_users, (batch_size,), generator=gen,
+                          device=train_pos.device)
+    cols = torch.randint(0, train_pos.shape[1], (batch_size,), generator=gen,
+                         device=train_pos.device)
+    uniform = torch.randint(0, ds.num_items, (batch_size,), generator=gen,
+                            device=train_pos.device)
+    pos = train_pos[users, cols]
+    pos = torch.where(pos >= 0, pos, train_pos[users, 0])
+    pos = torch.where(pos >= 0, pos, uniform)
+    return Batch(user_ids=users, pos_ids=pos)

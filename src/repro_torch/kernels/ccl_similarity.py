@@ -1,0 +1,141 @@
+"""Fused CCL similarity statistics and their analytic backward (paper §4.3 +
+§4.4), as hand-written CUDA kernels for Hopper with a plain PyTorch version
+of each beside it.
+
+``ccl_stats`` computes, in one pass over the embeddings,
+
+    uu = ||u||^2, pp = ||p||^2, up = u.p  (B, 1);   nn_j = ||n_j||^2, un_j = u.n_j  (B, n)
+
+and ``ccl_bwd`` evaluates the Eq. 4/5 gradients from those cached statistics
+without recomputing a dot product.  They replace the TPU kernels
+``src/repro/kernels/ccl_similarity.py::ccl_stats_pallas`` and
+``::ccl_bwd_pallas``; the kernel sources (``csrc/ccl_stats.cu``,
+``csrc/ccl_bwd.cu``) say what bounds each on the card and how the design
+meets it.
+
+Dispatch: a CPU tensor goes to the plain version; a CUDA tensor launches the
+kernel or raises.  Each wrapper counts its dispatches (``STATS_LAUNCHES``,
+``BWD_LAUNCHES``; see :class:`repro_torch.kernels._build.LaunchCounter`).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+
+STATS_LAUNCHES = _build.LaunchCounter("ccl_stats")
+BWD_LAUNCHES = _build.LaunchCounter("ccl_bwd")
+
+_P = ctypes.c_void_p
+_STATS_ARGS = [_P] * 8 + [ctypes.c_int] * 4 + [_P]
+_BWD_ARGS = [_P] * 12 + [ctypes.c_int] * 3 + [ctypes.c_float] * 2 + [_P]
+EPS = 1e-12
+
+
+def ccl_stats_plain(user, pos, negs):
+    """Plain version of :func:`ccl_stats`: the same per-row reductions, with
+    the batched GEMV ``un`` written as a broadcast multiply and a sum."""
+    u, p, n = user.float(), pos.float(), negs.float()
+    uu = (u * u).sum(-1, keepdim=True)
+    pp = (p * p).sum(-1, keepdim=True)
+    up = (u * p).sum(-1, keepdim=True)
+    nn = (n * n).sum(-1)
+    un = (n * u[:, None, :]).sum(-1)
+    return uu, pp, up, nn, un
+
+
+def ccl_bwd_plain(user, pos, negs, uu, pp, up, nn, un, g, *, mu: float,
+                  theta: float):
+    """Plain version of :func:`ccl_bwd`, in the reference kernel's order of
+    operations (``src/repro/kernels/ccl_similarity.py::_bwd_kernel``)."""
+    u, p, negs = user.float(), pos.float(), negs.float()
+    uue, ppe, nne = uu + EPS, pp + EPS, nn + EPS
+    inv_u, inv_p, inv_nn = torch.rsqrt(uue), torch.rsqrt(ppe), torch.rsqrt(nne)
+    g = g.reshape(())
+    neg_sim = un * inv_u * inv_nn
+    d_ps = -g
+    d_ns = (g * mu * (1.0 / negs.shape[1])) * (neg_sim > theta).float()
+    wp = d_ps * inv_u * inv_p                               # (B, 1)
+    wn = d_ns * inv_u * inv_nn                              # (B, n)
+    coeff_u = (wp * up + (wn * un).sum(-1, keepdim=True)) / uue
+    wn_negs = (wn[..., None] * negs).sum(1)                 # (B, K)
+    du = wp * p + wn_negs - coeff_u * u
+    dp = wp * u - (wp * up / ppe) * p
+    dn = wn[..., None] * u[:, None, :] - (wn * un / nne)[..., None] * negs
+    return du, dp, dn
+
+
+def _shapes(user, pos, negs) -> tuple[int, int, int]:
+    if user.dim() != 2 or pos.shape != user.shape or negs.dim() != 3 \
+            or negs.shape[0] != user.shape[0] or negs.shape[2] != user.shape[1]:
+        raise ValueError(f"expected user/pos (B, K) and negs (B, n, K), got "
+                         f"{tuple(user.shape)}, {tuple(pos.shape)}, "
+                         f"{tuple(negs.shape)}")
+    return user.shape[0], negs.shape[1], user.shape[1]
+
+
+def _device_type(t: torch.Tensor, name: str) -> str:
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: no kernel or plain version for {t.device}")
+    return t.device.type
+
+
+def ccl_stats(user, pos, negs):
+    """user (B, K), pos (B, K), negs (B, n, K) -> uu, pp, up (B, 1) and
+    nn, un (B, n), fp32."""
+    b, n, k = _shapes(user, pos, negs)
+    if _device_type(user, "ccl_stats") == "cpu":
+        STATS_LAUNCHES.bump("cpu")
+        return ccl_stats_plain(user, pos, negs)
+    _build.check_operands("ccl_stats", user.device,
+                          [(t, torch.float32) for t in (user, pos, negs)])
+    if k > 12_288:
+        raise ValueError(f"ccl_stats: K={k} exceeds the kernel's 48 KB of "
+                         "shared memory")
+    uu, pp, up = (torch.empty((b, 1), device=user.device) for _ in range(3))
+    nn, un = (torch.empty((b, n), device=user.device) for _ in range(2))
+    vec = int(k % 4 == 0 and user.data_ptr() % 16 == 0
+              and negs.data_ptr() % 16 == 0)
+    fn = _build.bind("ccl_stats", "ccl_stats", _STATS_ARGS)
+    with torch.cuda.device(user.device):
+        err = fn(user.data_ptr(), pos.data_ptr(), negs.data_ptr(),
+                 uu.data_ptr(), pp.data_ptr(), up.data_ptr(), nn.data_ptr(),
+                 un.data_ptr(), b, n, k, vec, _build.stream_of(user))
+    _build.check(err, "ccl_stats")
+    STATS_LAUNCHES.bump("cuda")
+    return uu, pp, up, nn, un
+
+
+def ccl_bwd(user, pos, negs, uu, pp, up, nn, un, g, *, mu: float,
+            theta: float):
+    """Fused Eq. 4/5 backward.  ``g``: the scalar cotangent of the mean loss,
+    already divided by B, as a one-element fp32 tensor on the inputs' device.
+    Returns du (B, K), dp (B, K), dn (B, n, K)."""
+    b, n, k = _shapes(user, pos, negs)
+    if _device_type(user, "ccl_bwd") == "cpu":
+        BWD_LAUNCHES.bump("cpu")
+        return ccl_bwd_plain(user, pos, negs, uu, pp, up, nn, un, g, mu=mu,
+                             theta=theta)
+    _build.check_operands(
+        "ccl_bwd", user.device,
+        [(t, torch.float32) for t in (user, pos, negs, uu, pp, up, nn, un, g)])
+    if g.numel() != 1 or uu.shape != (b, 1) or nn.shape != (b, n) \
+            or un.shape != (b, n) or pp.shape != (b, 1) or up.shape != (b, 1):
+        raise ValueError("ccl_bwd: stats must be (B, 1) x3 and (B, n) x2, "
+                         "and g one element")
+    if n > 4096:
+        raise ValueError(f"ccl_bwd: n={n} exceeds the kernel's shared memory")
+    du, dp = torch.empty_like(user), torch.empty_like(pos)
+    dn = torch.empty_like(negs)
+    fn = _build.bind("ccl_bwd", "ccl_bwd", _BWD_ARGS)
+    with torch.cuda.device(user.device):
+        err = fn(user.data_ptr(), pos.data_ptr(), negs.data_ptr(),
+                 uu.data_ptr(), pp.data_ptr(), up.data_ptr(), nn.data_ptr(),
+                 un.data_ptr(), g.data_ptr(), du.data_ptr(), dp.data_ptr(),
+                 dn.data_ptr(), b, n, k, float(mu), float(theta),
+                 _build.stream_of(user))
+    _build.check(err, "ccl_bwd")
+    BWD_LAUNCHES.bump("cuda")
+    return du, dp, dn

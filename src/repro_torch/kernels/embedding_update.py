@@ -1,0 +1,89 @@
+"""Sparse SGD row update (paper §3.1 / §4.5) as a hand-written CUDA kernel
+with the duplicate-id pre-reduce fused in, plus its plain PyTorch version.
+
+HEAT writes only the embedding rows the step touched.  The caller sorts the
+step's ids with a stable sort; :func:`gather_fma_rows_` then sums each id's
+gradients over its run in sorted order (a fixed-order segment sum, so the
+result does not depend on thread scheduling) and writes
+``table[id] -= lr * sum`` in place, once per unique id.  It replaces the TPU
+kernel ``src/repro/kernels/embedding_update.py::gather_fma_rows`` and the
+segment sum its wrapper ran in front of it (``src/repro/kernels/ops.py::
+sparse_row_update``); ``csrc/gather_fma.cu`` says what bounds it on the card.
+
+Dispatch: a CPU tensor goes to the plain version; a CUDA tensor launches the
+kernel or raises.  :func:`launch_count` counts the dispatches, so callers can
+hold the one-launch-per-step contract of ``row_update_many``.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+
+GATHER_FMA_LAUNCHES = _build.LaunchCounter("gather_fma")
+_P = ctypes.c_void_p
+_ARGS = [_P] * 4 + [ctypes.c_int] * 2 + [ctypes.c_float, _P]
+
+
+def launch_count(device_type: str = "cuda") -> int:
+    """Gather-FMA dispatches on ``device_type`` since the last reset: kernel
+    launches for ``"cuda"``, plain-version calls for ``"cpu"``."""
+    return GATHER_FMA_LAUNCHES.count(device_type)
+
+
+def reset_launch_count() -> None:
+    """Zero the gather-FMA dispatch counts."""
+    GATHER_FMA_LAUNCHES.reset()
+
+
+def gather_fma_rows_plain_(table, sids, order, grads, lr):
+    """Plain version of :func:`gather_fma_rows_`.  The segment sum runs in
+    sorted order (``segment_reduce`` sums each run sequentially), and every
+    lane of a run writes the same new row, so the scatter is idempotent and
+    needs no atomics."""
+    b = sids.shape[0]
+    if b == 0:
+        return table
+    first = torch.ones(b, dtype=torch.bool, device=sids.device)
+    first[1:] = sids[1:] != sids[:-1]
+    seg = torch.cumsum(first, 0) - 1                        # run index per lane
+    lengths = torch.searchsorted(
+        seg, torch.arange(b + 1, device=sids.device)).diff()
+    reduced = torch.segment_reduce(grads[order], "sum", lengths=lengths,
+                                   axis=0, unsafe=True)
+    table.index_put_((sids,), table[sids] - lr * reduced[seg])
+    return table
+
+
+def gather_fma_rows_(table, sids, order, grads, lr: float):
+    """In place: ``table[id] -= lr * (sum of grads[i] with ids[i] == id)``.
+
+    table (R, K); ``sids`` (B,) int64, the step's ids sorted by a stable sort
+    and all in ``[0, R)``; ``order`` (B,) int64, that sort's permutation;
+    grads (B, K) in the ids' original order.  Returns ``table``."""
+    b = sids.shape[0]
+    if table.dim() != 2 or grads.shape != (b, table.shape[1]) \
+            or order.shape != (b,) or sids.dim() != 1:
+        raise ValueError(f"expected table (R, K), sids/order (B,), grads "
+                         f"(B, K); got {tuple(table.shape)}, "
+                         f"{tuple(sids.shape)}, {tuple(order.shape)}, "
+                         f"{tuple(grads.shape)}")
+    if table.device.type == "cpu":
+        GATHER_FMA_LAUNCHES.bump("cpu")
+        return gather_fma_rows_plain_(table, sids, order, grads, lr)
+    if table.device.type != "cuda":
+        raise ValueError(f"gather_fma_rows_: no kernel for {table.device}")
+    _build.check_operands(
+        "gather_fma_rows_", table.device,
+        [(table, torch.float32), (grads, torch.float32),
+         (sids, torch.int64), (order, torch.int64)])
+    fn = _build.bind("gather_fma", "gather_fma_rows", _ARGS)
+    with torch.cuda.device(table.device):
+        err = fn(table.data_ptr(), sids.data_ptr(), order.data_ptr(),
+                 grads.data_ptr(), b, table.shape[1], float(lr),
+                 _build.stream_of(table))
+    _build.check(err, "gather_fma_rows_")
+    GATHER_FMA_LAUNCHES.bump("cuda")
+    return table

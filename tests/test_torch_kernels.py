@@ -1,0 +1,266 @@
+"""The port's kernel modules against the JAX package's Pallas kernels.
+
+Inputs are made with numpy from a seed and given to both packages.  The JAX
+side runs its Pallas kernels in interpret mode, as tests/test_kernels.py
+does; the port's wrappers run their plain versions on these CPU tensors.
+Tolerance: 1e-5 absolute in fp32 (the reference's own kernel-parity
+tolerance).  The tests marked ``cuda`` hold each CUDA kernel against its
+plain version on the card and skip where there is none; they import no JAX,
+so on a machine with the card and no JAX they run with
+``python -m pytest --noconftest -m cuda tests/test_torch_kernels.py``.
+"""
+import types
+
+import numpy as np
+import pytest
+import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
+
+from repro_torch.core.losses import ccl_loss_fused
+from repro_torch.kernels import _build, ccl_similarity, embedding_update, ops, ref
+
+ATOL = 1e-5
+
+
+@pytest.fixture(scope="module")
+def jx():
+    """The JAX package's kernels (imported here, not at module level, so the
+    ``cuda`` tests of this file also run where JAX is not installed)."""
+    pytest.importorskip("jax")
+    import jax
+    import jax.numpy as jnp
+    from repro.kernels import ccl_similarity as jccl
+    from repro.kernels import ops as jops
+    return types.SimpleNamespace(jax=jax, jnp=jnp, ccl=jccl, ops=jops)
+
+
+@pytest.fixture
+def cuda():
+    """The card, or a skip where there is none (decided at run time)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    return torch.device("cuda")
+
+
+def _cf(b, n, k, seed=0):
+    r = np.random.default_rng(seed)
+    return (r.standard_normal((b, k)).astype(np.float32),
+            r.standard_normal((b, k)).astype(np.float32),
+            r.standard_normal((b, n, k)).astype(np.float32))
+
+
+def _t(*xs, device="cpu"):
+    return [torch.as_tensor(np.array(x), device=device) for x in xs]
+
+
+SHAPES = [(16, 8, 32), (13, 5, 32), (16, 8, 30), (1, 3, 8)]
+
+
+@pytest.mark.parametrize("b,n,k", SHAPES)
+def test_ccl_stats_matches_pallas(jx, b, n, k):
+    u, p, negs = _cf(b, n, k)
+    want = jx.ccl.ccl_stats_pallas(u, p, negs, block_b=min(8, b),
+                                   interpret=True)
+    ccl_similarity.STATS_LAUNCHES.reset()
+    got = ccl_similarity.ccl_stats(*_t(u, p, negs))
+    assert ccl_similarity.STATS_LAUNCHES.count("cpu") == 1
+    assert ccl_similarity.STATS_LAUNCHES.count() == 0
+    oracle = ref.ccl_stats_ref(*_t(u, p, negs))
+    for g, o, w in zip(got, oracle, want):
+        assert g.shape == tuple(w.shape)
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=ATOL)
+        np.testing.assert_allclose(o.numpy(), np.asarray(w), atol=ATOL)
+
+
+@pytest.mark.parametrize("mu,theta", [(1.0, 0.0), (1.7, 0.4)])
+@pytest.mark.parametrize("b,n,k", SHAPES)
+def test_ccl_bwd_matches_pallas(jx, b, n, k, mu, theta):
+    u, p, negs = _cf(b, n, k, seed=1)
+    stats = [np.asarray(s) for s in
+             jx.ccl.ccl_stats_pallas(u, p, negs, block_b=b, interpret=True)]
+    g = np.float32(0.37 / b)
+    want = jx.ccl.ccl_bwd_pallas(u, p, negs, *stats, jx.jnp.asarray(g),
+                                 mu=mu, theta=theta, block_b=b, interpret=True)
+    got = ccl_similarity.ccl_bwd(*_t(u, p, negs, *stats),
+                                 torch.tensor([g]), mu=mu, theta=theta)
+    for a, w in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(w), atol=ATOL)
+
+
+@pytest.mark.parametrize("mu,theta", [(1.0, 0.0), (1.7, 0.4)])
+@pytest.mark.parametrize("b,n,k", [(16, 5, 32), (13, 8, 16)])
+def test_kernel_loss_matches_pallas_loss(jx, b, n, k, mu, theta):
+    u, p, negs = _cf(b, n, k, seed=2)
+    fn = jx.ops.make_ccl_loss_pallas(mu=mu, theta=theta, block_b=8,
+                                     interpret=True)
+    want_loss, want_grads = jx.jax.value_and_grad(fn, argnums=(0, 1, 2))(
+        u, p, negs)
+    leaves = [x.requires_grad_() for x in _t(u, p, negs)]
+    loss = ops.make_ccl_loss_kernel(mu, theta)(*leaves)
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(want_loss), atol=ATOL)
+    for leaf, w in zip(leaves, want_grads):
+        np.testing.assert_allclose(leaf.grad.numpy(), np.asarray(w), atol=ATOL)
+    # ... and the port's own residual-reuse loss and its autograd oracle.
+    fused = ccl_loss_fused(*_t(u, p, negs), mu, theta)
+    np.testing.assert_allclose(fused.item(), float(want_loss), atol=ATOL)
+    for a, w in zip(ref.ccl_grads_ref(*_t(u, p, negs), mu, theta), want_grads):
+        np.testing.assert_allclose(a.numpy(), np.asarray(w), atol=ATOL)
+
+
+def _groups(seed=3, rows=50, k=8):
+    """Three groups with duplicate ids within and across groups."""
+    r = np.random.default_rng(seed)
+    table = r.standard_normal((rows, k)).astype(np.float32)
+    groups = [(r.integers(0, 10, 12).astype(np.int32),
+               r.standard_normal((12, k)).astype(np.float32)),
+              (r.integers(0, 10, (3, 4)).astype(np.int32),
+               r.standard_normal((3, 4, k)).astype(np.float32)),
+              (np.array([0, 0, 49, 9], np.int32),
+               r.standard_normal((4, k)).astype(np.float32))]
+    return table, groups
+
+
+def test_fused_rows_update_matches_pallas_single_launch(jx):
+    table, groups = _groups()
+    want = jx.ops.fused_rows_update(
+        jx.jnp.asarray(table), [tuple(map(jx.jnp.asarray, g)) for g in groups],
+        0.1, use_kernel=True, interpret=True)
+    t_groups = [(torch.as_tensor(i).long(), torch.as_tensor(g))
+                for i, g in groups]
+    got = torch.as_tensor(table).clone()
+    embedding_update.reset_launch_count()
+    out = ops.fused_rows_update(got, t_groups, 0.1)
+    assert out is got                                  # in place
+    assert embedding_update.launch_count("cpu") == 1   # one dispatch per call
+    assert embedding_update.launch_count() == 0        # no kernel on the CPU
+    ops.fused_rows_update(got.clone(), t_groups, 0.1)
+    assert embedding_update.launch_count("cpu") == 2
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+    oracle = torch.as_tensor(table)
+    for ids, g in t_groups:
+        oracle = ref.rows_update_ref(oracle, ids, g, 0.1)
+    np.testing.assert_allclose(got.numpy(), oracle.numpy(), atol=ATOL)
+
+
+@pytest.mark.parametrize("use_kernel", [True, False])
+def test_sparse_row_update_matches_pallas(jx, use_kernel):
+    table, groups = _groups(seed=4, rows=64, k=16)
+    ids, grads = groups[0]
+    want = jx.ops.sparse_row_update(jx.jnp.asarray(table), jx.jnp.asarray(ids),
+                                    jx.jnp.asarray(grads), 0.05,
+                                    use_kernel=True, interpret=True)
+    got = ops.sparse_row_update(torch.as_tensor(table).clone(),
+                                torch.as_tensor(ids).long(),
+                                torch.as_tensor(grads), 0.05,
+                                use_kernel=use_kernel)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+
+
+def test_row_update_cross_group_duplicates_bit_exact():
+    """Exactly representable values (integer table/grads, lr 0.5): the
+    update must equal the dense oracle bit for bit, as the reference's
+    test_row_update_many_cross_group_duplicate_ids_bit_parity asserts."""
+    table = torch.arange(64 * 16, dtype=torch.float32).reshape(64, 16)
+    r = np.random.default_rng(7)
+    pos_ids = torch.tensor([3, 7, 3, 11, 60, 7])
+    neg_ids = torch.as_tensor(r.integers(0, 64, (6, 4)))
+    neg_ids[0, 0], neg_ids[2, 1], neg_ids[4, 2] = 3, 7, 11
+    g_pos = torch.as_tensor(r.integers(-4, 5, (6, 16)), dtype=torch.float32)
+    g_neg = torch.as_tensor(r.integers(-4, 5, (6, 4, 16)), dtype=torch.float32)
+    want = table.clone()
+    for ids, g in ((pos_ids, g_pos), (neg_ids, g_neg)):
+        for i, gr in zip(ids.reshape(-1), g.reshape(-1, 16)):
+            want[i] -= 0.5 * gr
+    for use_kernel in (True, False):
+        got = ops.fused_rows_update(table.clone(), [(pos_ids, g_pos),
+                                                    (neg_ids, g_neg)], 0.5,
+                                    use_kernel=use_kernel)
+        assert torch.equal(got, want)
+
+
+@settings(deadline=None, database=None, max_examples=25)
+@given(rows=st.integers(1, 40), b=st.integers(1, 60), seed=st.integers(0, 999))
+def test_sparse_row_update_property(rows, b, seed):
+    """Any duplicate pattern: the sorted fixed-order update equals the
+    scatter-add oracle."""
+    r = np.random.default_rng(seed)
+    table = torch.as_tensor(r.standard_normal((rows, 4)), dtype=torch.float32)
+    ids = torch.as_tensor(r.integers(0, rows, b))
+    grads = torch.as_tensor(r.standard_normal((b, 4)), dtype=torch.float32)
+    got = ops.sparse_row_update(table.clone(), ids, grads, 0.3)
+    want = ref.rows_update_ref(table, ids, grads, 0.3)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=ATOL)
+
+
+def test_wrappers_reject_bad_shapes_and_devices():
+    u, p, negs = _t(*_cf(4, 3, 8))
+    with pytest.raises(ValueError):
+        ccl_similarity.ccl_stats(u, p[:3], negs)
+    with pytest.raises(ValueError):
+        ccl_similarity.ccl_stats(u.to("meta"), p.to("meta"), negs.to("meta"))
+    with pytest.raises(ValueError):
+        embedding_update.gather_fma_rows_(torch.zeros(5, 8), torch.arange(3),
+                                          torch.arange(3), torch.zeros(3, 4),
+                                          0.1)
+
+
+def test_build_names_libraries_by_source_hash(tmp_path, monkeypatch):
+    """A library is named by its source's content hash, so an edited source
+    is rebuilt instead of a stale library being loaded."""
+    assert _build.sources() == ["ccl_bwd", "ccl_stats", "gather_fma"]
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    (tmp_path / "k.cu").write_text("// v1\n")
+    first = _build._target("k")
+    (tmp_path / "k.cu").write_text("// v2\n")
+    second = _build._target("k")
+    assert first != second and first.parent == tmp_path / "build"
+    assert _build.sources() == ["k"]
+
+
+# --------------------------------------------------------------------------
+# On the card: each CUDA kernel against its plain version.
+# --------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,k", SHAPES + [(1024, 64, 128)])
+def test_cuda_ccl_kernels_match_plain(cuda, b, n, k):
+    u, p, negs = _t(*_cf(b, n, k, seed=5), device=cuda)
+    ccl_similarity.STATS_LAUNCHES.reset()
+    ccl_similarity.BWD_LAUNCHES.reset()
+    stats = ccl_similarity.ccl_stats(u, p, negs)
+    for a, w in zip(stats, ccl_similarity.ccl_stats_plain(u, p, negs)):
+        torch.testing.assert_close(a, w, atol=ATOL, rtol=1e-5)
+    g = torch.tensor([0.37 / b], device=cuda)
+    got = ccl_similarity.ccl_bwd(u, p, negs, *stats, g, mu=1.3, theta=0.1)
+    want = ccl_similarity.ccl_bwd_plain(u, p, negs, *stats, g, mu=1.3,
+                                        theta=0.1)
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, atol=ATOL, rtol=1e-5)
+    torch.cuda.synchronize()
+    assert ccl_similarity.STATS_LAUNCHES.count() == 1
+    assert ccl_similarity.BWD_LAUNCHES.count() == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,b,k", [(50, 40, 8), (400_000, 2048, 128)])
+def test_cuda_gather_fma_matches_plain_and_repeats(cuda, rows, b, k):
+    r = np.random.default_rng(6)
+    table = torch.as_tensor(r.standard_normal((rows, k)), dtype=torch.float32,
+                            device=cuda)
+    ids = torch.as_tensor(r.integers(0, min(rows, b // 2), b), device=cuda)
+    grads = torch.as_tensor(r.standard_normal((b, k)), dtype=torch.float32,
+                            device=cuda)
+    embedding_update.reset_launch_count()
+    got = ops.sparse_row_update(table.clone(), ids, grads, 0.05)
+    again = ops.sparse_row_update(table.clone(), ids, grads, 0.05)
+    want = ops.sparse_row_update(table.clone(), ids, grads, 0.05,
+                                 use_kernel=False)
+    torch.cuda.synchronize()
+    assert embedding_update.launch_count() == 2
+    assert torch.equal(got, again)                     # same bits every run
+    torch.testing.assert_close(got, want, atol=ATOL, rtol=1e-5)
+    torch.testing.assert_close(got, ref.rows_update_ref(table, ids, grads, 0.05),
+                               atol=ATOL, rtol=1e-5)
