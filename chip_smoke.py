@@ -4,9 +4,10 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` and drives its
-main path — HEAT MF training with ``MF_100M_PALLAS`` (400k users x 400k
-items, K=128, n=64 negatives, tile 1,024) — through ``train_mf``.  Phases,
-one line each:
+main paths through ``train_mf``: HEAT MF training with ``MF_100M_PALLAS``
+(400k users x 400k items, K=128, n=64 negatives, tile 1,024), and the
+paper-scale ``AMAZON`` model (20.98M users x 9.35M items, K=128, n=64,
+behavior aggregation, tile 1,024) with int8 tables.  Phases, one line each:
 
   1. the card (name and power limit from nvidia-smi);
   2. the kernel build, with its seconds and each kernel's registers;
@@ -15,7 +16,9 @@ one line each:
      into the 400,000-row table): max abs error against the stated
      tolerance, and the median of 30 CUDA-event timings of the kernel, the
      plain version and, where one PyTorch call computes the same function,
-     that call (``library_ms``), each with the L2 cache flushed first;
+     that call (``library_ms``), each with the L2 cache flushed first; the
+     gather-dequant kernel on a synthetic 400,000-row int8 table at 1,024 and
+     at 16,384 ids, which must agree with its plain version bit for bit;
   4. the loss through the kernel autograd Function against the plain
      ``ccl_loss_fused``: loss and the three gradients;
   5. ``train_mf`` for 64 steps at batch 1,024 in windows of 16: finite
@@ -24,7 +27,20 @@ one line each:
   6. determinism: two runs of 2 steps (with a tile refresh) from one state,
      compared bit for bit;
   7. a torch.profiler window of the main path: kernel launches and device
-     busy time per step, and the kernels that take the most device time.
+     busy time per step, and the kernels that take the most device time;
+  8. ``AMAZON`` with int8 tables on the kernel backend at batch 1,024 in
+     windows of 16, on the CLI's dataset shape (4,096 users): finite losses,
+     the launches per step (gather-dequant 3, stats 1, backward 1,
+     gather-FMA 0), an int8 payload after training, a fixed-set loss that
+     falls, steps/s, peak device memory, and a profiled window; then the
+     gather-dequant kernel against its plain version, bit for bit, and
+     timed, on the trained tables: at the ids of the run's first batch (the
+     user, positive and history gathers; the kernels line reports the
+     history gather) and at ids across each whole table, last rows included;
+  9. an int8 restart: ``MF_100M_PALLAS`` with int8 tables, a 16-item
+     history and a tile refresh every 8 steps, 32 steps uninterrupted and
+     again with a checkpoint every 8 steps and a failure injected at step
+     13; every leaf of the two final states must be identical.
 
 Then it prints the kernels' JSON line, the card line, and as its last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
@@ -40,6 +56,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
@@ -50,6 +67,8 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 B, N_NEG, K, ROWS = 1024, 64, 128, 400_000
 STEPS, WINDOW = 64, 16
+INT8_STEPS, RESTART_STEPS = 64, 32
+DEQUANT_IDS = (1024, 16384)     # the sizes of AMAZON's user and history gathers
 RTOL, ATOL = 1e-5, 1e-6      # |kernel - plain| <= ATOL + RTOL * |plain|
 
 
@@ -102,8 +121,8 @@ def time_ms(fn, flush, reps: int = 30) -> float:
 
 
 def profile_window(executor, state, start: int, length: int,
-                   t_unprofiled: float) -> str:
-    """Profile one more window of the main path: kernel launches and device
+                   t_unprofiled: float, label: str = "7 profile") -> str:
+    """Profile one more window of a main path: kernel launches and device
     busy time per step, against the unprofiled window's wall time."""
     import torch
     from torch.autograd import DeviceType
@@ -114,15 +133,80 @@ def profile_window(executor, state, start: int, length: int,
     kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in kern) / length
     if not kern or busy_us <= 0:
-        return "[7 profile] the profiler saw no device time: not measured"
+        return f"[{label}] the profiler saw no device time: not measured"
     launches = sum(e.count for e in kern) / length
     step_us = 1e6 * t_unprofiled / length
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:6]
     names = ", ".join(f"{e.key[:48]} {e.self_device_time_total / length:.1f} us"
                       for e in top)
-    return (f"[7 profile] per step: {launches:.0f} kernel launches, device "
+    return (f"[{label}] per step: {launches:.0f} kernel launches, device "
             f"busy {busy_us:.1f} us of {step_us:.1f} us unprofiled "
             f"({100 * busy_us / step_us:.1f}%); top: {names}")
+
+
+def eval_loss(state, cfg, dds, batch: int = B) -> float:
+    """The model's CCL loss on a fixed set: 4 batches of (user, train
+    positive) pairs drawn with seed 1000 (with their history when the model
+    aggregates), 64 fixed uniform negatives per pair."""
+    import torch
+    from repro_torch.core import aggregation as agg
+    from repro_torch.core import mf
+    from repro_torch.core.losses import ccl_loss_fused
+    from repro_torch.data import pipeline
+    from repro_torch.optim import quantization as qz
+    t = state.params
+    dev = dds.train_pos.device
+    total = 0.0
+    for s in range(4):
+        b = pipeline.cf_batch_device(dds, 1000, s, batch, cfg.history_len)
+        neg = torch.randint(0, cfg.num_items, (batch, N_NEG),
+                            generator=mf.generator(mf.fold_in(1000, s), dev),
+                            device=dev)
+        user = qz.gather_rows(t.user_table, b.user_ids)
+        if t.aggregator is not None:
+            user = agg.aggregate(t.aggregator, user,
+                                 qz.gather_rows(t.item_table, b.hist_ids),
+                                 b.hist_mask, gate=cfg.gate,
+                                 kind=cfg.aggregation_kind)
+        total += ccl_loss_fused(user, qz.gather_rows(t.item_table, b.pos_ids),
+                                qz.gather_rows(t.item_table, neg)).item()
+    return total / 4
+
+
+def gather_dequant_entry(q, scale, ids, flush) -> dict:
+    """The gather-dequant kernel against its plain version on ``ids`` (must
+    agree bit for bit), its kernel, plain and library times, and its bound:
+    each distinct row and scale read once (a repeated id reads its row from
+    L2), each id read once, each fp32 output row written once."""
+    import torch
+    from repro_torch.kernels import embedding_update as eu
+    got = eu.gather_dequant_rows(q, scale, ids)
+    want = eu.gather_dequant_rows_plain(q, scale, ids)
+    err = (got - want).abs().max().item()
+    assert torch.equal(got, want), f"gather-dequant differs: max abs err {err}"
+    n_ids, k = ids.numel(), q.shape[1]
+    n_unique = int(torch.unique(ids).numel())
+    b_ms, b_by = bound(n_unique * (k + 4) + 8 * n_ids + 4 * n_ids * k, n_ids * k)
+    return dict(
+        name="gather_dequant", route="cuda",
+        source="src/repro_torch/csrc/gather_dequant.cu",
+        replaces="src/repro/kernels/embedding_update.py:48", max_abs_err=err,
+        ms=time_ms(lambda: eu.gather_dequant_rows(q, scale, ids), flush),
+        plain_ms=time_ms(lambda: eu.gather_dequant_rows_plain(q, scale, ids),
+                         flush),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=time_ms(lambda: q.index_select(0, ids), flush),
+        n_unique=n_unique, max_id=int(ids.max()))
+
+
+def dequant_summary(kd: dict) -> str:
+    """One line's worth of a :func:`gather_dequant_entry` result."""
+    return (f"{kd['n_unique']} unique, largest id {kd['max_id']}; max abs err "
+            f"{kd['max_abs_err']:.1e} (must be 0); {kd['ms']:.4f} ms kernel, "
+            f"{kd['plain_ms']:.4f} ms plain, bound {kd['bound_ms']:.4f} ms "
+            f"({kd['bound_by']}), library {kd['library_ms']:.4f} ms "
+            f"(q.index_select alone: the int8 gather without the dequant, a "
+            f"partial yardstick)")
 
 
 def main() -> int:
@@ -131,11 +215,12 @@ def main() -> int:
         print("chip_smoke: no CUDA device; the port's smoke run needs the card",
               file=sys.stderr)
         return 1
-    from repro_torch.configs.heat_mf import MF_100M_PALLAS
+    from repro_torch.configs.heat_mf import AMAZON, MF_100M_PALLAS
     from repro_torch.core import mf
     from repro_torch.core.losses import ccl_loss_fused
     from repro_torch.data import pipeline
     from repro_torch.kernels import _build, ccl_similarity, embedding_update, ops
+    from repro_torch.train import checkpoint as ckpt
     from repro_torch.train import trainer
 
     dev = torch.device("cuda")
@@ -221,6 +306,7 @@ def main() -> int:
         library_ms=time_ms(lambda: work.index_add_(0, ids, grads, alpha=-0.05),
                            flush)))
     del work, table
+
     for kd in kernels:
         lib = ("n/a" if kd["library_ms"] is None
                else "%.4f ms" % kd["library_ms"])
@@ -228,6 +314,19 @@ def main() -> int:
               f"(tol {ATOL:g} + {RTOL:g}*|plain|); {kd['ms']:.4f} ms kernel, "
               f"{kd['plain_ms']:.4f} ms plain, bound {kd['bound_ms']:.4f} ms "
               f"({kd['bound_by']}), library {lib} | {card}", flush=True)
+
+    q8 = torch.randint(-127, 128, (ROWS, K), generator=gen, device=dev,
+                       dtype=torch.int8)
+    scale8 = torch.rand(ROWS, 1, generator=gen, device=dev) * 1e-2 + 1e-4
+    for n_ids in DEQUANT_IDS:
+        fresh = torch.randint(0, ROWS, (n_ids - n_ids // 4,), generator=gen,
+                              device=dev)
+        ids = torch.cat([fresh, fresh[:n_ids // 4]])      # duplicates
+        kd = gather_dequant_entry(q8, scale8, ids, flush)
+        print(f"[3 gather_dequant] {n_ids} ids ({n_ids // 4} repeated) from a "
+              f"synthetic {ROWS}-row int8 table: {dequant_summary(kd)} | {card}",
+              flush=True)
+    del q8, scale8
 
     # ---- 4: the kernel loss against the plain fused loss -------------------
     def loss_and_grads(fn):
@@ -248,23 +347,11 @@ def main() -> int:
     t_data = time.perf_counter() - t0
     dds = pipeline.device_cf_dataset(ds, dev)
 
-    def eval_loss(state) -> float:
-        """CCL loss on a fixed set: 4 batches of (user, train positive)
-        pairs drawn with seed 1000, 64 fixed uniform negatives per pair."""
-        t = state.params
-        total = 0.0
-        for s in range(4):
-            b = pipeline.cf_batch_device(dds, 1000, s, B)
-            neg = torch.randint(0, MF_100M_PALLAS.num_items, (B, N_NEG),
-                                generator=mf.generator(mf.fold_in(1000, s), dev),
-                                device=dev)
-            total += ccl_loss_fused(t.user_table[b.user_ids], t.item_table[b.pos_ids],
-                                    t.item_table[neg]).item()
-        return total / 4
-
-    eval_before = eval_loss(mf.init_mf(0, MF_100M_PALLAS, device=dev))  # train_mf's init
+    eval_before = eval_loss(mf.init_mf(0, MF_100M_PALLAS, device=dev),  # train_mf's init
+                            MF_100M_PALLAS, dds)
     counters = (ccl_similarity.STATS_LAUNCHES, ccl_similarity.BWD_LAUNCHES,
-                embedding_update.GATHER_FMA_LAUNCHES)
+                embedding_update.GATHER_FMA_LAUNCHES,
+                embedding_update.GATHER_DEQUANT_LAUNCHES)
     for c in counters:
         c.reset()
     torch.cuda.synchronize()
@@ -279,12 +366,12 @@ def main() -> int:
     # At lr 0.05 a row moves by about lr/B per step, so the window means of
     # the training loss are dominated by batch-to-batch noise; the check of
     # learning is the loss on a fixed set, before and after the 64 steps.
-    eval_after = eval_loss(state)
+    eval_after = eval_loss(state, MF_100M_PALLAS, dds)
     assert eval_after < eval_before, f"loss did not fall: {eval_before} -> {eval_after}"
     # One stats and one backward launch per step; one gather-FMA launch per
     # table per step (the user update, then the item groups' fused update).
     assert launches == {"ccl_stats": STEPS, "ccl_bwd": STEPS,
-                        "gather_fma": 2 * STEPS}, launches
+                        "gather_fma": 2 * STEPS, "gather_dequant": 0}, launches
     for kd in kernels:
         kd["launches"] = launches[kd["name"]]
     body = mf.make_scan_body(MF_100M_PALLAS, lambda s: pipeline.cf_batch_device(
@@ -311,8 +398,8 @@ def main() -> int:
     runs = []
     for _ in range(2):
         s = mf.MFState(mf.MFParams(base.params.user_table.clone(),
-                                   base.params.item_table.clone()),
-                       base.tile, base.step)
+                                   base.params.item_table.clone(), None),
+                       base.tile, None, base.step)
         out = []
         for step in range(2):
             s, loss = body(s, step)
@@ -332,10 +419,121 @@ def main() -> int:
     # ---- 7: where a steady step's time goes --------------------------------
     print(profile_window(executor, state, STEPS + WINDOW, WINDOW, t_steady),
           flush=True)
+    del state, executor, body, base, runs, s0, s1
+
+    # ---- 8: AMAZON with int8 tables ----------------------------------------
+    cfg8 = dataclasses.replace(AMAZON, backend="pallas", update_impl="pallas",
+                               table_format="int8")
+    t0 = time.perf_counter()
+    ds8 = pipeline.synth_cf_dataset(4096, cfg8.num_items)       # the CLI's shape
+    t_data8 = time.perf_counter() - t0
+    dds8 = pipeline.device_cf_dataset(ds8, dev)
+    init = mf.init_mf(0, cfg8, device=dev)                      # train_mf's init
+    eval_before = eval_loss(init, cfg8, dds8)
+    del init
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters:
+        c.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, losses = trainer.train_mf(cfg8, ds8, INT8_STEPS, batch_size=B,
+                                     steps_per_dispatch=WINDOW, device="cuda")
+    torch.cuda.synchronize()
+    t_train = time.perf_counter() - t0
+    launches8 = {c.name: c.count() for c in counters}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    assert len(losses) == INT8_STEPS and all(math.isfinite(x) for x in losses), losses
+    assert launches8 == {"ccl_stats": INT8_STEPS, "ccl_bwd": INT8_STEPS,
+                         "gather_fma": 0, "gather_dequant": 3 * INT8_STEPS}, launches8
+    payload = {str(t.q.dtype) for t in (state.params.user_table,
+                                        state.params.item_table)}
+    assert payload == {"torch.int8"}, payload
+    eval_after = eval_loss(state, cfg8, dds8)
+    assert eval_after < eval_before, f"int8 loss did not fall: {eval_before} -> {eval_after}"
+    body = mf.make_scan_body(cfg8, lambda s: pipeline.cf_batch_device(
+        dds8, 0, s, B, cfg8.history_len), 0)
+    executor = trainer.EpochExecutor(body, WINDOW)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, window = executor.run(state, INT8_STEPS, WINDOW)
+    torch.cuda.synchronize()
+    t_steady = time.perf_counter() - t0
+    assert bool(torch.isfinite(window).all())
+    hist_len = dds8.train_pos.shape[1]
+    print(f"[8 int8 train] AMAZON int8 ({cfg8.num_users} x {cfg8.num_items} x "
+          f"{cfg8.emb_dim}, n={cfg8.num_negatives}, history {cfg8.history_len} "
+          f"-> {hist_len} columns of the dataset, tile {cfg8.tile_size}) batch "
+          f"{B}: {INT8_STEPS} steps, loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
+          f"fixed-set loss {eval_before:.6f} -> {eval_after:.6f}; launches "
+          f"{launches8}; payload {payload.pop()}; {INT8_STEPS / t_train:.1f} "
+          f"steps/s including init, {WINDOW / t_steady:.1f} steps/s over one "
+          f"more {WINDOW}-step window; peak device memory {peak_gb:.2f} GB; "
+          f"dataset {t_data8:.1f} s | {card}", flush=True)
+    print(profile_window(executor, state, INT8_STEPS + WINDOW, WINDOW, t_steady,
+                         label="8 profile"), flush=True)
+
+    # The gather-dequant on the trained tables themselves, at the ids of the
+    # run's first batch (user, positive, history: the step's three calls),
+    # and on ids across each whole table, its last rows included, so the
+    # kernel reads rows past 2^31 bytes into the 20.98M-row user table.
+    tables = state.params
+    batch = pipeline.cf_batch_device(dds8, 0, 0, B, cfg8.history_len)
+    assert (tables.user_table.q.shape[0] - 1) * K >= 2 ** 31
+    cases = [("user", tables.user_table, batch.user_ids),
+             ("positive", tables.item_table, batch.pos_ids),
+             ("history", tables.item_table, batch.hist_ids.reshape(-1))]
+    for name, table in (("user", tables.user_table),
+                        ("item", tables.item_table)):
+        rows = table.q.shape[0]
+        cases.append((f"{name}, whole range", table, torch.cat([
+            torch.randint(0, rows, (B - 64,), generator=gen, device=dev),
+            torch.arange(rows - 64, rows, device=dev)])))
+    for name, table, ids in cases:
+        kd = gather_dequant_entry(table.q, table.scale, ids, flush)
+        print(f"[8 gather_dequant] {name}: {ids.numel()} ids into the trained "
+              f"{table.q.shape[0]}-row int8 table: {dequant_summary(kd)} | "
+              f"{card}", flush=True)
+        if name == "history":       # the largest of the step's three calls
+            del kd["n_unique"], kd["max_id"]
+            kd["launches"] = launches8["gather_dequant"]
+            kernels.append(kd)
+    del state, executor, body, dds8, ds8, tables, batch, cases, table, ids
+    torch.cuda.empty_cache()
+
+    # ---- 9: an int8 restart, bit for bit -----------------------------------
+    cfg9 = dataclasses.replace(MF_100M_PALLAS, table_format="int8",
+                               history_len=16, refresh_interval=8)
+    t0 = time.perf_counter()
+    clean, _ = trainer.train_mf(cfg9, ds, RESTART_STEPS, batch_size=B, seed=3,
+                                steps_per_dispatch=WINDOW, device="cuda")
+    logs = []
+    with tempfile.TemporaryDirectory() as d:
+        healed, _ = trainer.train_mf(cfg9, ds, RESTART_STEPS, batch_size=B,
+                                     seed=3, steps_per_dispatch=WINDOW,
+                                     device="cuda", ckpt_dir=d, ckpt_every=8,
+                                     fail_at_step=13, log=logs.append)
+        saved = ckpt.valid_steps(d)
+    torch.cuda.synchronize()
+    t_restart = time.perf_counter() - t0
+    assert logs == ["[mf] injected failure at step 13 -> restoring"], logs
+    names = []
+    for (name, a), (name_b, b) in zip(ckpt.named_leaves(clean),
+                                      ckpt.named_leaves(healed), strict=True):
+        same = torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
+        assert name == name_b and same, f"restart differs at {name}"
+        names.append(name)
+    print(f"[9 restart] MF_100M_PALLAS int8, history 16, refresh every 8: "
+          f"{RESTART_STEPS} steps clean and with a failure at step 13 healed "
+          f"from the step-8 checkpoint (checkpoints {saved}): all {len(names)} "
+          f"leaves identical bit for bit ({', '.join(names)}); {t_restart:.1f} s "
+          f"| {card}", flush=True)
+
     print(json.dumps({"kernels": kernels}))
     print(card)
+    # The run uses one card (card 0), whatever else the machine exposes.
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+        "platform": "gpu", "kind": kind, "count": 1}}))
     return 0
 
 

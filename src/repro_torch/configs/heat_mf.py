@@ -6,8 +6,10 @@ import dataclasses
 
 from repro_torch.core.mf import MFConfig
 
-# Paper-scale (Amazon Product Reviews, Table 3).  Needs behavior aggregation
-# (history_len=100), which a later slice of the port brings.
+# Paper-scale (Amazon Product Reviews, Table 3), with behavior aggregation
+# (history_len=100; the synthetic dataset's 16 train columns cap the history
+# at 16).  Runs in the port; with table_format="int8" its training carry is
+# about 8 GB, so it fits one H100.
 AMAZON = MFConfig(num_users=20_980_000, num_items=9_350_000, emb_dim=128,
                   num_negatives=64, history_len=100, tile_size=1024,
                   refresh_interval=4096,

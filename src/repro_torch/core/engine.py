@@ -18,8 +18,9 @@ A :class:`StepEngine` bundles the three decisions a training step makes:
   * **sampler**: ``uniform``, ``tile`` (the §4.2 resident tile) or ``auto``
     (tile when the state carries one).
 
-Names the port does not have yet raise the reference's ``ValueError``,
-listing what the port has.  Per-example ``(B, n, K)`` negatives only; the
+The item table a sampler draws from may be fp32 or int8 (gathers go
+through ``optim/quantization.py``).  Names the port does not have yet raise
+the reference's ``ValueError``, listing what the port has.  Per-example ``(B, n, K)`` negatives only; the
 step-shared layout and masks wait for the LM slice.
 """
 from __future__ import annotations
@@ -37,6 +38,7 @@ from repro_torch.kernels.ops import (
     make_ccl_loss_kernel,
     sparse_row_update,
 )
+from repro_torch.optim import quantization as qz
 
 LossFn = Callable[..., torch.Tensor]
 UpdateFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor, float], torch.Tensor]
@@ -73,10 +75,10 @@ def register_sampler(name: str):
 
 
 class SampleContext(NamedTuple):
-    """Everything a sampler may draw from: the live item table and the
-    resident tile (or None)."""
+    """Everything a sampler may draw from: the live item table (fp32 or
+    int8) and the resident tile (or None)."""
 
-    table: torch.Tensor                          # (I, K)
+    table: qz.Table                              # (I, K)
     tile: Optional[samplers.TileState] = None
 
 
@@ -111,8 +113,8 @@ class UniformSampler:
     name = "uniform"
 
     def sample(self, state, gen, shape):
-        ids = samplers.sample_uniform(gen, state.table.shape[0], shape)
-        return NegSample(ids, state.table[ids], state)
+        ids = samplers.sample_uniform(gen, qz.num_rows(state.table), shape)
+        return NegSample(ids, qz.gather_rows(state.table, ids), state)
 
 
 @register_sampler("tile")
@@ -240,6 +242,10 @@ def resolve_engine(cfg=None, *, backend: Optional[str] = None,
     if sampler not in SAMPLERS:
         raise ValueError(f"unknown sampler {sampler!r}; "
                          f"available: {sorted(SAMPLERS)}")
+    table_format = getattr(cfg, "table_format", None) or "fp32"
+    if table_format not in qz.TABLE_FORMATS:
+        raise ValueError(f"unknown table_format {table_format!r}; "
+                         f"available: {list(qz.TABLE_FORMATS)}")
     if backend == "pallas" and getattr(cfg, "similarity", "cosine") != "cosine":
         raise ValueError(
             "backend='pallas' implements cosine similarity only "

@@ -1,26 +1,29 @@
 """Matrix-factorization CF model and the HEAT training step (paper §4.1).
 
 One training step, as in Fig. 3 and in ``src/repro/core/mf.py``:
-  (1) gather user + positive embeddings (sparse lookups),
+  (1) gather user + positive embeddings (sparse lookups; int8 tables are
+      dequantized as they are gathered),
   (2) sample n negatives — uniform or from the resident tile (§4.2),
-  (3) fused similarity + CCL with residual reuse (§4.3, §4.4),
-  (4) analytic gradients with respect to the gathered rows only,
-  (5) sparse row updates: only touched rows are written (§3.1), duplicates
-      pre-reduced in a fixed order,
-  (6) write-through of the updates to the tile, then its scheduled refresh.
+  (3) optional behavior aggregation of the user's history (§4.5),
+  (4) fused similarity + CCL with residual reuse (§4.3, §4.4),
+  (5) analytic gradients with respect to the gathered rows only,
+  (6) sparse row updates: only touched rows are written (§3.1), duplicates
+      pre-reduced in a fixed order; int8 tables requantize the touched rows
+      with stochastic rounding (``optim/quantization.py``),
+  (7) write-through of the updates to the tile, then its scheduled refresh,
+  (8) aggregator gradients accumulate locally, flushing every m steps.
 
 The tables are updated **in place** — the PyTorch form of the reference's
 donated carry: the returned state shares the input state's table tensors, so
-a caller that needs the old tables clones them first.  Step and tile
-counters are host ints, so the loop never waits on the device to decide the
-refresh schedule.  Behavior aggregation (``history_len > 0``) and int8 tables
-wait for later slices of the port and raise ``NotImplementedError``.
+a caller that needs the old tables clones them first.  Step, tile and
+accumulator counters are host ints, so the loop never waits on the device to
+decide the refresh or flush schedule.
 
 Randomness: every draw uses an explicit ``torch.Generator`` seeded from an
 integer key.  Keys derive from ``(seed, step)`` by :func:`fold_in`, a stated
 SplitMix64 mix, so every draw is pure in (seed, step).  The port cannot
 reproduce JAX's threefry draws; cross-package tests replay the reference's
-ids instead.
+ids and rounding noise instead.
 """
 from __future__ import annotations
 
@@ -29,8 +32,10 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch.core import aggregation as agg
 from repro_torch.core import samplers
 from repro_torch.core.engine import SampleContext, StepEngine, resolve_engine
+from repro_torch.optim import quantization as qz
 
 _M64 = (1 << 64) - 1
 
@@ -64,26 +69,34 @@ class MFConfig:
 
 
 class MFParams(NamedTuple):
-    """The trainable parameters: user and item tables, ``(R, K)`` each."""
+    """The trainable parameters: user and item tables (``(R, K)`` tensors
+    under ``table_format='fp32'``, :class:`~repro_torch.optim.quantization.
+    QuantizedTable` under ``'int8'``) and the aggregator (None when
+    ``history_len == 0``)."""
 
-    user_table: torch.Tensor
-    item_table: torch.Tensor
+    user_table: qz.Table
+    item_table: qz.Table
+    aggregator: Optional[agg.AggregatorParams]
 
 
 class MFState(NamedTuple):
-    """Training carry: params, the §4.2 resident tile (or None), and the
-    step (host int)."""
+    """Training carry: params, the §4.2 resident tile (or None), the
+    aggregator's gradient accumulator (or None), and the step (host int)."""
 
     params: MFParams
     tile: Optional[samplers.TileState]
+    accum: Optional[agg.AccumulatorState]
     step: int
 
 
 class Batch(NamedTuple):
-    """One training mini-batch of implicit-feedback interactions (int64)."""
+    """One training mini-batch of implicit-feedback interactions (int64
+    ids); ``hist_ids``/``hist_mask`` (B, H) when the model aggregates."""
 
-    user_ids: torch.Tensor     # (B,)
-    pos_ids: torch.Tensor      # (B,)
+    user_ids: torch.Tensor                     # (B,)
+    pos_ids: torch.Tensor                      # (B,)
+    hist_ids: Optional[torch.Tensor] = None    # (B, H) int64
+    hist_mask: Optional[torch.Tensor] = None   # (B, H) fp32
 
 
 def _splitmix64(x: int) -> int:
@@ -118,38 +131,44 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def check_ported(cfg: MFConfig) -> None:
-    """Raise ``NotImplementedError`` for config features the port does not
-    have yet, naming the ROADMAP item that brings each."""
-    if cfg.table_format != "fp32":
-        raise NotImplementedError(
-            f"table_format={cfg.table_format!r}: int8 tables come with the "
-            "int8 slice of the port (ROADMAP.md, queue A, item 2)")
-    if cfg.history_len > 0:
-        raise NotImplementedError(
-            "history_len > 0: behavior aggregation comes with the next MF "
-            "slice of the port (ROADMAP.md, queue A, item 1)")
+#: salts of the step key: the negative draw, the tile refresh, and the two
+#: stochastic-rounding draws of an int8 step (user table, then item table).
+NEG_SALT, TILE_SALT, ROUND_USER_SALT, ROUND_ITEM_SALT = 0, 1, 2, 3
+
+
+def _init_table(key: int, rows: int, cfg: MFConfig, std: float, dev):
+    """One table drawn from ``key``, quantized at once for int8 (so the
+    fp32 draw of one table is the only full-size temporary)."""
+    t = torch.randn((rows, cfg.emb_dim), dtype=getattr(torch, cfg.dtype),
+                    device=dev, generator=generator(key, dev)).mul_(std)
+    return qz.quantize_table(t) if cfg.table_format == "int8" else t
 
 
 def init_mf(seed: int, cfg: MFConfig, *, device=None) -> MFState:
     """Initialize an :class:`MFState` from the config on ``device`` (the
-    card by default; see :func:`resolve_device`)."""
-    check_ported(cfg)
+    card by default; see :func:`resolve_device`), quantizing each fresh
+    table before the next is drawn when ``cfg.table_format == 'int8'``."""
+    if cfg.table_format not in qz.TABLE_FORMATS:
+        raise ValueError(f"unknown table_format {cfg.table_format!r}; "
+                         f"available: {list(qz.TABLE_FORMATS)}")
     dev = resolve_device(device)
-    dtype = getattr(torch, cfg.dtype)
     if cfg.init == "xavier":
         su = (2.0 / (cfg.num_users + cfg.emb_dim)) ** 0.5
         si = (2.0 / (cfg.num_items + cfg.emb_dim)) ** 0.5
     else:
         su = si = cfg.init_std
-    user_t = torch.randn((cfg.num_users, cfg.emb_dim), dtype=dtype, device=dev,
-                         generator=generator(fold_in(seed, 0), dev)) * su
-    item_t = torch.randn((cfg.num_items, cfg.emb_dim), dtype=dtype, device=dev,
-                         generator=generator(fold_in(seed, 1), dev)) * si
+    user_t = _init_table(fold_in(seed, 0), cfg.num_users, cfg, su, dev)
+    item_t = _init_table(fold_in(seed, 1), cfg.num_items, cfg, si, dev)
     tile = (samplers.tile_init(generator(fold_in(seed, 2), dev), item_t,
                                cfg.tile_size)
             if cfg.tile_size > 0 else None)
-    return MFState(MFParams(user_t, item_t), tile, 0)
+    aggregator = accum = None
+    if cfg.history_len > 0:
+        aggregator = agg.init_aggregator(generator(fold_in(seed, 3), dev),
+                                         cfg.emb_dim, cfg.aggregation_kind,
+                                         getattr(torch, cfg.dtype))
+        accum = agg.accumulator_init(aggregator)
+    return MFState(MFParams(user_t, item_t, aggregator), tile, accum, 0)
 
 
 def heat_train_step(state: MFState, batch: Batch, rng: int, cfg: MFConfig,
@@ -157,40 +176,69 @@ def heat_train_step(state: MFState, batch: Batch, rng: int, cfg: MFConfig,
     """One HEAT iteration; returns ``(new_state, loss)`` with the loss a
     0-d tensor on the device.
 
-    ``rng`` is the step's integer key: the negative draw uses the generator
-    of ``fold_in(rng, 0)`` and the tile refresh that of ``fold_in(rng, 1)``,
-    as the reference splits its step key in two.  ``engine`` selects the
+    ``rng`` is the step's integer key.  The generators of its salts
+    (:data:`NEG_SALT` ...) draw, in order: the negatives (0), the tile
+    refresh (1), and for int8 tables the stochastic rounding of the user
+    update (2) and of the item update (3) — the reference splits its key in
+    two and folds in 1 and 2 for the roundings.  ``engine`` selects the
     loss, row-update and sampler implementations (``None`` resolves it from
-    the config).  The tables are updated in place."""
-    check_ported(cfg)
+    the config); int8 tables replace the engine's row update with the
+    requantizing one, as in the reference.  Gathers from an int8 table go
+    through the gather-dequant kernel when ``engine.backend == 'pallas'``.
+    The tables are updated in place."""
     if engine is None:
         engine = resolve_engine(cfg)
     params, tile = state.params, state.tile
-    dev = params.user_table.device
+    dev = batch.user_ids.device
+    quantized = isinstance(params.user_table, qz.QuantizedTable)
+    in_kernel = quantized and engine.backend == "pallas"
 
-    user_e = params.user_table[batch.user_ids]
-    pos_e = params.item_table[batch.pos_ids]
+    user_e = qz.gather_rows(params.user_table, batch.user_ids,
+                            use_kernel=in_kernel)
+    pos_e = qz.gather_rows(params.item_table, batch.pos_ids,
+                           use_kernel=in_kernel)
     n_shape = (batch.user_ids.shape[0], cfg.num_negatives)
     drawn = engine.sampler.sample(
         SampleContext(table=params.item_table, tile=tile),
-        generator(fold_in(rng, 0), dev), n_shape)
+        generator(fold_in(rng, NEG_SALT), dev), n_shape)
     neg_ids, neg_e, neg_local = drawn.ids, drawn.embs, drawn.local_idx
     tile = drawn.state.tile
 
-    leaves = [t.detach().requires_grad_() for t in (user_e, pos_e, neg_e)]
+    aggregator = params.aggregator
+    rows = [user_e, pos_e, neg_e]
+    if aggregator is not None:
+        rows.append(qz.gather_rows(params.item_table, batch.hist_ids,
+                                   use_kernel=in_kernel))
+    leaves = [t.detach().requires_grad_() for t in rows]
+    agg_leaves = ([None if t is None else t.detach().requires_grad_()
+                   for t in aggregator] if aggregator is not None else [])
     with torch.enable_grad():
-        loss = engine.loss_fn(*leaves, mu=cfg.mu, theta=cfg.theta,
-                              similarity=cfg.similarity)
-        g_user, g_pos, g_neg = torch.autograd.grad(loss, leaves)
+        user_in = leaves[0]
+        if aggregator is not None:
+            user_in = agg.aggregate(
+                agg.AggregatorParams(*agg_leaves), user_in, leaves[3],
+                batch.hist_mask.to(user_e.dtype), gate=cfg.gate,
+                kind=cfg.aggregation_kind)
+        loss = engine.loss_fn(user_in, leaves[1], leaves[2], mu=cfg.mu,
+                              theta=cfg.theta, similarity=cfg.similarity)
+        grads = list(torch.autograd.grad(
+            loss, leaves + [t for t in agg_leaves if t is not None]))
+    g_user, g_pos, g_neg = grads[:3]
 
     # §3.1: only touched rows are written.  All of the step's item gradient
-    # groups go to row_update_many in ONE call (one kernel launch for the
-    # `pallas` update).  Tile-sourced negatives are slot-reduced first when
-    # the tile is no larger than the sample, so the table takes N1 unique
-    # rows instead of B*n duplicate-heavy ones and the tile write-through is
-    # a dense add; a tile larger than the sample keeps per-sample rows.
-    new_user = engine.row_update(params.user_table, batch.user_ids, g_user,
-                                 cfg.lr)
+    # groups go to ONE update (one kernel launch for the `pallas` update,
+    # one requantization per touched row for int8).  Tile-sourced negatives
+    # are slot-reduced first when the tile is no larger than the sample, so
+    # the table takes N1 unique rows instead of B*n duplicate-heavy ones and
+    # the tile write-through is a dense add; a tile larger than the sample
+    # keeps per-sample rows.
+    if quantized:
+        new_user = qz.apply_updates(
+            params.user_table, batch.user_ids, g_user, cfg.lr,
+            generator(fold_in(rng, ROUND_USER_SALT), dev))
+    else:
+        new_user = engine.row_update(params.user_table, batch.user_ids,
+                                     g_user, cfg.lr)
     neg_reduced = None
     item_groups = [(batch.pos_ids, g_pos)]
     if neg_local is not None and tile.tile_ids.shape[0] <= neg_local.numel():
@@ -199,9 +247,19 @@ def heat_train_step(state: MFState, batch: Batch, rng: int, cfg: MFConfig,
         item_groups.append((tile.tile_ids, neg_reduced))
     else:
         item_groups.append((neg_ids, g_neg))
-    new_item = engine.row_update_many(params.item_table, item_groups, cfg.lr)
+    if aggregator is not None:
+        item_groups.append((batch.hist_ids, grads[3]))
+    if quantized:
+        new_item = qz.apply_updates_many(
+            params.item_table, item_groups, cfg.lr,
+            generator(fold_in(rng, ROUND_ITEM_SALT), dev))
+    else:
+        new_item = engine.row_update_many(params.item_table, item_groups,
+                                          cfg.lr)
 
-    # Tile coherence: write the same updates through to the resident copy,
+    # Tile coherence: write the same updates through to the resident copy
+    # (exact fp32 updates, also over an int8 table: the tile drifts from the
+    # requantized rows by at most their rounding until it is refreshed),
     # then refresh on schedule (§4.2).
     if tile is not None:
         global_groups = [(batch.pos_ids, g_pos)]
@@ -211,12 +269,25 @@ def heat_train_step(state: MFState, batch: Batch, rng: int, cfg: MFConfig,
             tile = samplers.tile_apply_grads(tile, neg_local, g_neg, cfg.lr)
         else:
             global_groups.append((neg_ids, g_neg))
+        if aggregator is not None:
+            global_groups.append((batch.hist_ids, grads[3]))
         tile = samplers.tile_apply_global_grads_many(tile, global_groups,
                                                      cfg.lr)
-        tile = samplers.tile_refresh(tile, generator(fold_in(rng, 1), dev),
+        tile = samplers.tile_refresh(tile,
+                                     generator(fold_in(rng, TILE_SALT), dev),
                                      new_item, cfg.refresh_interval)
 
-    new_state = MFState(MFParams(new_user, new_item), tile, state.step + 1)
+    # Aggregator: local accumulation, deferred flush (§4.5 / Listing 1).
+    accum = state.accum
+    if aggregator is not None:
+        g_agg = iter(grads[4:])
+        accum = agg.accumulate(accum, agg.AggregatorParams(
+            *(None if t is None else next(g_agg) for t in agg_leaves)))
+        aggregator, accum = agg.maybe_flush(accum, aggregator, cfg.lr,
+                                            cfg.flush_every)
+
+    new_state = MFState(MFParams(new_user, new_item, aggregator), tile, accum,
+                        state.step + 1)
     return new_state, loss.detach()
 
 

@@ -7,8 +7,9 @@ reads stay coherent.
 
 Every draw takes an explicit ``torch.Generator`` on the device it draws on.
 The tile's refresh counter is a host ``int``: the refresh schedule is known
-to the host, so deciding it costs no device sync.  The sharded and id-only
-tiles wait for later slices.
+to the host, so deciding it costs no device sync.  The item table may be
+fp32 or int8 (``optim/quantization.py``); the tile copy is always fp32.  The
+sharded and id-only tiles wait for later slices.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core import tiling
+from repro_torch.optim import quantization as qz
 
 
 def sample_uniform(gen: torch.Generator, num_items: int, shape) -> torch.Tensor:
@@ -44,9 +46,10 @@ class TileState(NamedTuple):
 
 
 def tile_init(gen: torch.Generator, item_table, tile_size: int) -> TileState:
-    """Draw the initial resident tile (distinct sorted ids + their rows)."""
-    ids = sample_unique(gen, item_table.shape[0], tile_size)
-    return TileState(ids, item_table[ids], 0)
+    """Draw the initial resident tile (distinct sorted ids + their rows,
+    dequantized when the table is int8)."""
+    ids = sample_unique(gen, qz.num_rows(item_table), tile_size)
+    return TileState(ids, qz.gather_rows(item_table, ids), 0)
 
 
 def tile_refresh(state: TileState, gen: torch.Generator, item_table,
@@ -54,8 +57,9 @@ def tile_refresh(state: TileState, gen: torch.Generator, item_table,
     """Redraw the tile from the live table every ``refresh_interval`` steps,
     else count the step."""
     if state.step >= refresh_interval - 1:
-        ids = sample_unique(gen, item_table.shape[0], state.tile_ids.shape[0])
-        return TileState(ids, item_table[ids], 0)
+        ids = sample_unique(gen, qz.num_rows(item_table),
+                            state.tile_ids.shape[0])
+        return TileState(ids, qz.gather_rows(item_table, ids), 0)
     return TileState(state.tile_ids, state.tile_emb, state.step + 1)
 
 

@@ -21,16 +21,30 @@ def concat_groups(groups):
     return ids, grads
 
 
+def run_index(sids):
+    """Run index of each lane of sorted ``sids`` (B,): 0 for the lanes of
+    the first run of equal values, 1 for the next run, and so on."""
+    first = torch.ones(sids.shape, dtype=torch.bool, device=sids.device)
+    first[1:] = sids[1:] != sids[:-1]
+    return torch.cumsum(first, 0) - 1
+
+
 def segment_sum(idx, values, num_segments: int):
     """``out[s] = sum(values[i] for i with idx[i] == s)``, summed in the
     order of ``i``: (num_segments, K) from idx (M,) in ``[0, num_segments]``
     and values (M, K).  Entries with ``idx == num_segments`` are dropped.
     Sort-based, with no atomics and no host sync."""
     order = torch.argsort(idx, stable=True)
+    return sorted_segment_sum(idx[order], values[order], num_segments)
+
+
+def sorted_segment_sum(sidx, values, num_segments: int):
+    """:func:`segment_sum` of inputs already sorted by ``sidx`` (stably):
+    each run is summed sequentially, in the given order."""
     bounds = torch.searchsorted(
-        idx[order], torch.arange(num_segments + 2, dtype=idx.dtype,
-                                 device=idx.device))
-    sums = torch.segment_reduce(values[order], "sum", lengths=bounds.diff(),
+        sidx, torch.arange(num_segments + 2, dtype=sidx.dtype,
+                           device=sidx.device))
+    sums = torch.segment_reduce(values, "sum", lengths=bounds.diff(),
                                 axis=0, unsafe=True)
     return sums[:num_segments]
 

@@ -83,12 +83,16 @@ def device_cf_dataset(ds: CFDataset, device) -> DeviceCFDataset:
 
 
 def cf_batch_device(ds: DeviceCFDataset, seed: int, step: int,
-                    batch_size: int) -> Batch:
+                    batch_size: int, history_len: int = 0) -> Batch:
     """Users uniform over the dataset and one train positive each, drawn on
     the dataset's device; pure in (seed, step).
 
     A drawn padding slot (-1) falls back to the user's column 0; a user with
-    no positive at all falls back to a uniform item, as in the reference."""
+    no positive at all falls back to a uniform item, as in the reference.
+    With ``history_len > 0`` the batch also carries the user's first
+    ``history_len`` train columns as history (``train_pos[users,
+    :history_len]``, so at most the dataset's width), padding masked out and
+    pointed at item 0, as the reference's ``_cf_batch_from``."""
     train_pos = ds.train_pos
     gen = generator(fold_in(fold_in(seed, step), BATCH_STREAM),
                     train_pos.device)
@@ -101,4 +105,10 @@ def cf_batch_device(ds: DeviceCFDataset, seed: int, step: int,
     pos = train_pos[users, cols]
     pos = torch.where(pos >= 0, pos, train_pos[users, 0])
     pos = torch.where(pos >= 0, pos, uniform)
-    return Batch(user_ids=users, pos_ids=pos)
+    hist_ids = hist_mask = None
+    if history_len > 0:
+        h = train_pos[users, :history_len]
+        hist_mask = (h >= 0).to(torch.float32)
+        hist_ids = torch.where(h >= 0, h, 0)
+    return Batch(user_ids=users, pos_ids=pos, hist_ids=hist_ids,
+                 hist_mask=hist_mask)

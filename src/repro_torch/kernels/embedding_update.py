@@ -1,5 +1,6 @@
-"""Sparse SGD row update (paper §3.1 / §4.5) as a hand-written CUDA kernel
-with the duplicate-id pre-reduce fused in, plus its plain PyTorch version.
+"""The embedding-row kernels as hand-written CUDA kernels, each with its
+plain PyTorch version: the sparse SGD row update (paper §3.1 / §4.5) with the
+duplicate-id pre-reduce fused in, and the int8 gather-dequant.
 
 HEAT writes only the embedding rows the step touched.  The caller sorts the
 step's ids with a stable sort; :func:`gather_fma_rows_` then sums each id's
@@ -10,9 +11,15 @@ kernel ``src/repro/kernels/embedding_update.py::gather_fma_rows`` and the
 segment sum its wrapper ran in front of it (``src/repro/kernels/ops.py::
 sparse_row_update``); ``csrc/gather_fma.cu`` says what bounds it on the card.
 
+:func:`gather_dequant_rows` gathers rows of an int8 table and dequantizes
+them (``float(q[id]) * scale[id]``), so the fp32 table never exists; it
+replaces ``src/repro/kernels/embedding_update.py::gather_dequant_rows``, and
+``csrc/gather_dequant.cu`` says what bounds it on the card.
+
 Dispatch: a CPU tensor goes to the plain version; a CUDA tensor launches the
-kernel or raises.  :func:`launch_count` counts the dispatches, so callers can
-hold the one-launch-per-step contract of ``row_update_many``.
+kernel or raises.  :func:`launch_count` counts the gather-FMA dispatches, so
+callers can hold the one-launch-per-step contract of ``row_update_many``;
+``GATHER_DEQUANT_LAUNCHES`` counts the gather-dequant ones.
 """
 from __future__ import annotations
 
@@ -20,11 +27,14 @@ import ctypes
 
 import torch
 
+from repro_torch.core import tiling
 from repro_torch.kernels import _build
 
 GATHER_FMA_LAUNCHES = _build.LaunchCounter("gather_fma")
+GATHER_DEQUANT_LAUNCHES = _build.LaunchCounter("gather_dequant")
 _P = ctypes.c_void_p
 _ARGS = [_P] * 4 + [ctypes.c_int] * 2 + [ctypes.c_float, _P]
+_DEQUANT_ARGS = [_P] * 4 + [ctypes.c_int] * 2 + [_P]
 
 
 def launch_count(device_type: str = "cuda") -> int:
@@ -46,13 +56,8 @@ def gather_fma_rows_plain_(table, sids, order, grads, lr):
     b = sids.shape[0]
     if b == 0:
         return table
-    first = torch.ones(b, dtype=torch.bool, device=sids.device)
-    first[1:] = sids[1:] != sids[:-1]
-    seg = torch.cumsum(first, 0) - 1                        # run index per lane
-    lengths = torch.searchsorted(
-        seg, torch.arange(b + 1, device=sids.device)).diff()
-    reduced = torch.segment_reduce(grads[order], "sum", lengths=lengths,
-                                   axis=0, unsafe=True)
+    seg = tiling.run_index(sids)
+    reduced = tiling.sorted_segment_sum(seg, grads[order], b)
     table.index_put_((sids,), table[sids] - lr * reduced[seg])
     return table
 
@@ -87,3 +92,40 @@ def gather_fma_rows_(table, sids, order, grads, lr: float):
     _build.check(err, "gather_fma_rows_")
     GATHER_FMA_LAUNCHES.bump("cuda")
     return table
+
+
+def gather_dequant_rows_plain(q, scale, ids):
+    """Plain version of :func:`gather_dequant_rows`: the same one fp32
+    multiply per element, so the two agree bit for bit.  ``ids`` may be any
+    row index (an int tensor of any shape, or a slice): this is the port's
+    one plain dequantization."""
+    return q[ids].to(torch.float32) * scale[ids]
+
+
+def gather_dequant_rows(q, scale, ids):
+    """``out[i] = float(q[ids[i]]) * scale[ids[i]]``: fp32 ``(B, K)`` from an
+    int8 ``(R, K)`` payload ``q``, fp32 ``(R, 1)`` scales and int64 ``(B,)``
+    ids, all in ``[0, R)``."""
+    if q.dim() != 2 or tuple(scale.shape) != (q.shape[0], 1) or ids.dim() != 1:
+        raise ValueError(f"expected q (R, K), scale (R, 1), ids (B,); got "
+                         f"{tuple(q.shape)}, {tuple(scale.shape)}, "
+                         f"{tuple(ids.shape)}")
+    if q.device.type == "cpu":
+        GATHER_DEQUANT_LAUNCHES.bump("cpu")
+        return gather_dequant_rows_plain(q, scale, ids)
+    if q.device.type != "cuda":
+        raise ValueError(f"gather_dequant_rows: no kernel for {q.device}")
+    _build.check_operands(
+        "gather_dequant_rows", q.device,
+        [(q, torch.int8), (scale, torch.float32), (ids, torch.int64)])
+    b, k = ids.shape[0], q.shape[1]
+    out = torch.empty((b, k), dtype=torch.float32, device=q.device)
+    if b == 0 or k == 0:
+        return out
+    fn = _build.bind("gather_dequant", "gather_dequant_rows", _DEQUANT_ARGS)
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), scale.data_ptr(), ids.data_ptr(), out.data_ptr(),
+                 b, k, _build.stream_of(q))
+    _build.check(err, "gather_dequant_rows")
+    GATHER_DEQUANT_LAUNCHES.bump("cuda")
+    return out

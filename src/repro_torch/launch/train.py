@@ -5,10 +5,13 @@
         --backend pallas --update-impl pallas            # MF_100M on the card
     PYTHONPATH=src python -m repro_torch.launch.train --mf --reduced --steps 20 \\
         --device cpu                                      # plain path, CPU
+    PYTHONPATH=src python -m repro_torch.launch.train --mf --reduced --steps 40 \\
+        --table-format int8 --ckpt-dir DIR --ckpt-every 10 \\
+        --fail-at-step 25 --device cpu       # int8, crash and resume
 
 Runs on the card unless ``--device cpu`` is given; with no CUDA device it
-exits with an error instead of falling back.  The LM trainer, meshes and
-checkpoints wait for later slices.
+exits with an error instead of falling back.  The LM trainer and meshes wait
+for later slices.
 """
 from __future__ import annotations
 
@@ -36,6 +39,13 @@ def main(argv=None):
     ap.add_argument("--sampler", default=None,
                     choices=["auto", "uniform", "tile"],
                     help="negative-sampling strategy (default: auto)")
+    ap.add_argument("--table-format", default=None, choices=["fp32", "int8"],
+                    help="embedding-table storage: fp32 (default) or int8 + "
+                         "per-row scales with stochastic-rounded updates "
+                         "(optim/quantization.py)")
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--fail-at-step", type=int, default=None)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="cuda (default) runs the kernels on the card; cpu "
                          "runs their plain versions")
@@ -58,7 +68,8 @@ def main(argv=None):
         MF_100M, num_users=2000, num_items=4000, emb_dim=64)
     overrides = {k: v for k, v in (
         ("backend", args.backend), ("update_impl", args.update_impl),
-        ("sampler", args.sampler)) if v}
+        ("sampler", args.sampler), ("table_format", args.table_format))
+        if v}
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides)
     engine = resolve_engine(cfg)
@@ -68,7 +79,9 @@ def main(argv=None):
     _, losses = trainer.train_mf(cfg, ds, steps=args.steps,
                                  batch_size=args.batch, engine=engine,
                                  steps_per_dispatch=args.steps_per_dispatch,
-                                 device=device)
+                                 ckpt_dir=args.ckpt_dir,
+                                 ckpt_every=args.ckpt_every,
+                                 fail_at_step=args.fail_at_step, device=device)
     print(f"done: {len(losses)} steps, final loss {losses[-1]:.4f}")
 
 

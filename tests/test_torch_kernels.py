@@ -31,8 +31,9 @@ def jx():
     import jax
     import jax.numpy as jnp
     from repro.kernels import ccl_similarity as jccl
+    from repro.kernels import embedding_update as jeu
     from repro.kernels import ops as jops
-    return types.SimpleNamespace(jax=jax, jnp=jnp, ccl=jccl, ops=jops)
+    return types.SimpleNamespace(jax=jax, jnp=jnp, ccl=jccl, ops=jops, eu=jeu)
 
 
 @pytest.fixture
@@ -206,10 +207,57 @@ def test_wrappers_reject_bad_shapes_and_devices():
                                           0.1)
 
 
+def _int8_table(rows, k, seed=0):
+    """An int8 payload and per-row scales as quantize_table makes them."""
+    r = np.random.default_rng(seed)
+    q = r.integers(-127, 128, (rows, k)).astype(np.int8)
+    scale = (r.random((rows, 1)) * 1e-2 + 1e-4).astype(np.float32)
+    return q, scale
+
+
+DEQUANT_SHAPES = [(64, 16, 16), (50, 13, 30), (512, 40, 64), (9, 1, 3)]
+
+
+@pytest.mark.parametrize("rows,b,k", DEQUANT_SHAPES)
+def test_gather_dequant_plain_matches_pallas(jx, rows, b, k):
+    q, scale = _int8_table(rows, k)
+    ids = np.random.default_rng(1).integers(0, rows, b).astype(np.int32)
+    ids[0] = ids[-1]                                      # a duplicate
+    want = jx.eu.gather_dequant_rows(jx.jnp.asarray(q), jx.jnp.asarray(scale),
+                                     jx.jnp.asarray(ids), interpret=True)
+    got = embedding_update.gather_dequant_rows(
+        torch.as_tensor(q), torch.as_tensor(scale), torch.as_tensor(ids).long())
+    assert got.dtype == torch.float32 and got.shape == (b, k)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_gather_dequant_counts_dispatches():
+    q, scale = (torch.as_tensor(a) for a in _int8_table(20, 8))
+    ids = torch.tensor([3, 3, 19])
+    embedding_update.GATHER_DEQUANT_LAUNCHES.reset()
+    embedding_update.gather_dequant_rows(q, scale, ids)
+    embedding_update.gather_dequant_rows(q, scale, ids[:1])
+    assert embedding_update.GATHER_DEQUANT_LAUNCHES.count("cpu") == 2
+    assert embedding_update.GATHER_DEQUANT_LAUNCHES.count() == 0
+    embedding_update.gather_dequant_rows_plain(q, scale, ids)   # not counted
+    assert embedding_update.GATHER_DEQUANT_LAUNCHES.count("cpu") == 2
+
+
+@pytest.mark.parametrize("shapes", [((5, 8), (5, 2), (3,)), ((5, 8), (5, 1), (3, 1)),
+                                    ((5,), (5, 1), (3,))])
+def test_gather_dequant_rejects_bad_shapes(shapes):
+    q, scale, ids = shapes
+    with pytest.raises(ValueError):
+        embedding_update.gather_dequant_rows(
+            torch.zeros(q, dtype=torch.int8), torch.ones(scale),
+            torch.zeros(ids, dtype=torch.int64))
+
+
 def test_build_names_libraries_by_source_hash(tmp_path, monkeypatch):
     """A library is named by its source's content hash, so an edited source
     is rebuilt instead of a stale library being loaded."""
-    assert _build.sources() == ["ccl_bwd", "ccl_stats", "gather_fma"]
+    assert _build.sources() == ["ccl_bwd", "ccl_stats", "gather_dequant",
+                                "gather_fma"]
     monkeypatch.setattr(_build, "CSRC", tmp_path)
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     (tmp_path / "k.cu").write_text("// v1\n")
@@ -264,3 +312,18 @@ def test_cuda_gather_fma_matches_plain_and_repeats(cuda, rows, b, k):
     torch.testing.assert_close(got, want, atol=ATOL, rtol=1e-5)
     torch.testing.assert_close(got, ref.rows_update_ref(table, ids, grads, 0.05),
                                atol=ATOL, rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,b,k", DEQUANT_SHAPES + [(400_000, 1024, 128),
+                                                       (400_000, 16384, 128)])
+def test_cuda_gather_dequant_matches_plain(cuda, rows, b, k):
+    q, scale = (torch.as_tensor(a, device=cuda) for a in _int8_table(rows, k))
+    ids = torch.as_tensor(np.random.default_rng(2).integers(0, rows, b),
+                          device=cuda)
+    ids[0] = ids[-1]
+    embedding_update.GATHER_DEQUANT_LAUNCHES.reset()
+    got = embedding_update.gather_dequant_rows(q, scale, ids)
+    torch.cuda.synchronize()
+    assert embedding_update.GATHER_DEQUANT_LAUNCHES.count() == 1
+    assert torch.equal(got, embedding_update.gather_dequant_rows_plain(q, scale, ids))

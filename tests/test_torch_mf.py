@@ -4,9 +4,17 @@ A reference ``MFState`` is carried into the port with
 ``convert.mf_state_from_numpy``.  The port cannot reproduce JAX's threefry
 draws, so its negatives come from a replay sampler registered for the test,
 which returns the ids (and tile slots) the reference sampler drew; a tile
-refresh gets the reference's new tile ids the same way.  Loss, both tables,
-and the tile must agree to 1e-5 (fp32), over backend x update x sampler and
-both tile branches (slot-reduced when N1 <= B*n, per-sample otherwise).
+refresh gets the reference's new tile ids the same way, and an int8 step
+gets the reference's stochastic-rounding noise (``jax.random.uniform`` of
+its two rounding keys, recorded as the reference step draws it) through the
+port's ``uniform_noise``.  Loss, fp32 tables, the tile, the aggregator and
+its accumulator must agree to 1e-5; int8 tables to the tolerance of
+``tests/test_torch_quantization.py`` (scales 1e-6 relative, dequantized rows
+within one quantization step, payloads equal on 99.9% of elements), their
+residuals within one residual quantization step.  The
+matrix covers backend x update x sampler, both tile branches (slot-reduced
+when N1 <= B*n, per-sample otherwise), both table formats and behavior
+aggregation.
 """
 import dataclasses
 
@@ -16,20 +24,25 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core import aggregation as jagg
 from repro.core import engine as jeng
 from repro.core import losses as jlosses
 from repro.core import mf as jmf
 from repro.core import samplers as jsam
+from repro.optim import quantization as jqz
 from repro.train.checkpoint import _flatten_with_paths
 from repro_torch import convert
 from repro_torch.configs import heat_mf as tcfgs
+from repro_torch.core import aggregation as tagg
 from repro_torch.core import engine as teng
 from repro_torch.core import losses as tlosses
 from repro_torch.core import mf as tmf
 from repro_torch.core import samplers as tsam
+from repro_torch.optim import quantization as tqz
 
 ATOL = 1e-5
-B, N_NEG, USERS, ITEMS, K = 8, 4, 128, 256, 16
+B, N_NEG, USERS, ITEMS, K, H = 8, 4, 128, 256, 16, 3
+INT8_LEAVES = ("q", "scale", "err", "err_scale")
 
 
 class ReplaySampler:
@@ -41,7 +54,8 @@ class ReplaySampler:
     def sample(self, state, gen, shape):
         assert tuple(self.ids.shape) == tuple(shape)
         if self.local is None:
-            return teng.NegSample(self.ids, state.table[self.ids], state)
+            return teng.NegSample(self.ids, tqz.gather_rows(state.table, self.ids),
+                                  state)
         return teng.NegSample(self.ids, state.tile.tile_emb[self.local], state,
                               local_idx=self.local)
 
@@ -54,28 +68,58 @@ def replay():
     del teng.SAMPLERS["replay"]
 
 
-def _cfg(backend, update, sampler, tile_size, refresh=1000):
+def _cfg(backend, update, sampler, tile_size, refresh=1000, **kw):
     return jmf.MFConfig(num_users=USERS, num_items=ITEMS, emb_dim=K,
                         num_negatives=N_NEG, tile_size=tile_size,
                         refresh_interval=refresh, backend=backend,
-                        update_impl=update, sampler=sampler)
+                        update_impl=update, sampler=sampler, **kw)
 
 
 def _tree(state):
     return {name: np.asarray(leaf) for name, leaf in _flatten_with_paths(state)}
 
 
-def _batch(step):
+def _batch(step, history_len=0):
+    """(users, positives, history ids, history mask) as numpy; padded
+    history slots point at item 0, as the pipeline makes them."""
     r = np.random.default_rng(100 + step)
-    return (r.integers(0, USERS, B).astype(np.int32),
-            r.integers(0, ITEMS, B).astype(np.int32))
+    users = r.integers(0, USERS, B).astype(np.int32)
+    pos = r.integers(0, ITEMS, B).astype(np.int32)
+    if not history_len:
+        return users, pos, None, None
+    mask = (r.random((B, history_len)) < 0.7).astype(np.float32)
+    mask[0] = 0.0                                     # a user with no history
+    hist = np.where(mask > 0, r.integers(0, ITEMS, (B, history_len)), 0)
+    return users, pos, hist.astype(np.int32), mask
 
 
-def _reference_step(state, users, pos, rng, cfg):
+@pytest.fixture
+def noise(monkeypatch):
+    """Records the reference step's stochastic-rounding noise and replays it
+    into the port's ``uniform_noise`` in the same order."""
+    draws = []
+    orig = jqz.stochastic_round
+
+    def recording(x, rng):
+        draws.append(np.array(jax.random.uniform(rng, x.shape, dtype=x.dtype)))
+        return orig(x, rng)
+
+    def replaying(gen, shape, device):
+        u = draws.pop(0)
+        assert tuple(shape) == u.shape
+        return torch.as_tensor(u, device=device)
+
+    monkeypatch.setattr(jqz, "stochastic_round", recording)
+    monkeypatch.setattr(tqz, "uniform_noise", replaying)
+    yield draws
+    assert not draws, "a recorded draw was not replayed"
+
+
+def _reference_step(state, batch_np, rng, cfg):
     """The reference step, plus the draws the port must replay."""
     engine = jeng.resolve_engine(cfg)
     r_neg, r_tile = jax.random.split(rng)
-    batch = jmf.Batch(jnp.asarray(users), jnp.asarray(pos))
+    batch = jmf.Batch(*(None if x is None else jnp.asarray(x) for x in batch_np))
     drawn = engine.sampler.sample(
         jeng.SampleContext(table=state.params.item_table, tile=state.tile,
                            pos_ids=batch.pos_ids), r_neg, (B, N_NEG))
@@ -88,7 +132,7 @@ def _reference_step(state, users, pos, rng, cfg):
     return new_state, float(loss), drawn, refresh_ids
 
 
-def _port_step(state, users, pos, cfg, drawn, refresh_ids, replay,
+def _port_step(state, batch_np, cfg, drawn, refresh_ids, replay,
                monkeypatch):
     replay.ids = torch.as_tensor(np.array(drawn.ids)).long()
     replay.local = (None if drawn.local_idx is None
@@ -98,8 +142,27 @@ def _port_step(state, users, pos, cfg, drawn, refresh_ids, replay,
         monkeypatch.setattr(tsam, "sample_unique", lambda gen, num, n: ids)
     cfg = tmf.MFConfig(**dataclasses.asdict(cfg))
     engine = teng.resolve_engine(cfg, sampler="replay")
-    batch = tmf.Batch(torch.as_tensor(users).long(), torch.as_tensor(pos).long())
+    users, pos, hist, mask = batch_np
+    batch = tmf.Batch(torch.as_tensor(users).long(), torch.as_tensor(pos).long(),
+                      None if hist is None else torch.as_tensor(hist).long(),
+                      None if mask is None else torch.as_tensor(mask))
     return tmf.heat_train_step(state, batch, 0, cfg, engine=engine)
+
+
+def _assert_int8_close(got, want, prefix):
+    """The int8 tolerance of tests/test_torch_quantization.py for the
+    payload; the residual is the rounding error of the update, so it
+    inherits the fp32 rounding differences of the two packages' gradients:
+    the dequantized residuals agree within one residual quantization
+    step."""
+    t = {f: (got[f"{prefix}/{f}"], want[f"{prefix}/{f}"]) for f in INT8_LEAVES}
+    np.testing.assert_allclose(*t["scale"], rtol=1e-6, err_msg=prefix)
+    same = np.mean(t["q"][0] == t["q"][1])
+    assert same >= 0.999, (prefix, same)
+    deq = [q.astype(np.float32) * s for q, s in zip(t["q"], t["scale"])]
+    assert np.all(np.abs(deq[0] - deq[1]) <= t["scale"][1] * (1 + 1e-6)), prefix
+    res = [e.astype(np.float32) * s for e, s in zip(t["err"], t["err_scale"])]
+    assert np.all(np.abs(res[0] - res[1]) <= 1.01 * t["err_scale"][1]), prefix
 
 
 def _assert_same(jstate, jloss, tstate, tloss):
@@ -108,8 +171,12 @@ def _assert_same(jstate, jloss, tstate, tloss):
     got = convert.mf_state_to_numpy(tstate)
     assert sorted(got) == sorted(want)
     for name in want:
-        if name in ("tile/tile_ids", "tile/step", "step"):
+        assert got[name].dtype == want[name].dtype, name
+        if name in ("tile/tile_ids", "tile/step", "accum/count", "step"):
             np.testing.assert_array_equal(got[name], want[name], err_msg=name)
+        elif name.rsplit("/", 1)[-1] in INT8_LEAVES:
+            if name.endswith("/q"):
+                _assert_int8_close(got, want, name[:-2])
         else:
             np.testing.assert_allclose(got[name], want[name], atol=ATOL,
                                        err_msg=name)
@@ -124,10 +191,35 @@ def test_heat_train_step_matches_reference(backend, update, sampler, tile_size,
     cfg = _cfg(backend, update, sampler, tile_size)
     jstate = jmf.init_mf(jax.random.PRNGKey(0), cfg)
     tstate = convert.mf_state_from_numpy(_tree(jstate))
-    users, pos = _batch(0)
+    batch = _batch(0)
     jstate, jloss, drawn, refresh_ids = _reference_step(
-        jstate, users, pos, jax.random.PRNGKey(1), cfg)
-    tstate, tloss = _port_step(tstate, users, pos, cfg, drawn, refresh_ids,
+        jstate, batch, jax.random.PRNGKey(1), cfg)
+    tstate, tloss = _port_step(tstate, batch, cfg, drawn, refresh_ids,
+                               replay, monkeypatch)
+    _assert_same(jstate, jloss, tstate, tloss)
+
+
+@pytest.mark.parametrize("history_len", [0, H])
+@pytest.mark.parametrize("sampler", ["uniform", "tile"])
+@pytest.mark.parametrize("backend", ["fused", "pallas"])
+@pytest.mark.parametrize("table_format", ["fp32", "int8"])
+def test_step_matches_reference_over_format_and_history(
+        table_format, backend, sampler, history_len, replay, noise,
+        monkeypatch):
+    """One replayed step over {fp32, int8} x {fused, pallas} x {uniform,
+    tile} x history {0, 3}; int8 + pallas gathers through the gather-dequant
+    kernel (its plain version here, Pallas interpret mode in the
+    reference)."""
+    update = "pallas" if backend == "pallas" else "scatter_add"
+    cfg = _cfg(backend, update, sampler, 16, history_len=history_len,
+               table_format=table_format)
+    jstate = jmf.init_mf(jax.random.PRNGKey(0), cfg)
+    tstate = convert.mf_state_from_numpy(_tree(jstate))
+    batch = _batch(0, history_len)
+    jstate, jloss, drawn, refresh_ids = _reference_step(
+        jstate, batch, jax.random.PRNGKey(1), cfg)
+    assert len(noise) == (2 if table_format == "int8" else 0)
+    tstate, tloss = _port_step(tstate, batch, cfg, drawn, refresh_ids,
                                replay, monkeypatch)
     _assert_same(jstate, jloss, tstate, tloss)
 
@@ -141,21 +233,36 @@ def test_three_replayed_steps_with_refresh(backend, update, sampler, tile_size,
                                            replay, monkeypatch):
     """Three consecutive steps; refresh_interval=2 redraws the tile in the
     second step, so the third samples from the refreshed tile."""
-    cfg = _cfg(backend, update, sampler, tile_size, refresh=2)
+    _three_steps(_cfg(backend, update, sampler, tile_size, refresh=2),
+                 replay, monkeypatch)
+
+
+def _three_steps(cfg, replay, monkeypatch):
     jstate = jmf.init_mf(jax.random.PRNGKey(3), cfg)
     tstate = convert.mf_state_from_numpy(_tree(jstate))
     base = jax.random.PRNGKey(11)
     tile_ids = [np.asarray(jstate.tile.tile_ids)]
     for step in range(3):
-        users, pos = _batch(step)
+        batch = _batch(step, cfg.history_len)
         jstate, jloss, drawn, refresh_ids = _reference_step(
-            jstate, users, pos, jax.random.fold_in(base, step), cfg)
-        tstate, tloss = _port_step(tstate, users, pos, cfg, drawn,
+            jstate, batch, jax.random.fold_in(base, step), cfg)
+        tstate, tloss = _port_step(tstate, batch, cfg, drawn,
                                    refresh_ids, replay, monkeypatch)
         _assert_same(jstate, jloss, tstate, tloss)
         tile_ids.append(np.asarray(jstate.tile.tile_ids))
     assert not np.array_equal(tile_ids[1], tile_ids[2])     # refreshed once
     assert np.array_equal(tile_ids[2], tile_ids[3])
+
+
+@pytest.mark.parametrize("backend,sampler", [("pallas", "tile"),
+                                             ("fused", "uniform")])
+def test_three_int8_steps_with_refresh(backend, sampler, replay, noise,
+                                       monkeypatch):
+    """Three consecutive int8 steps with history; the tile is redrawn from
+    the requantized int8 table in the second step."""
+    update = "pallas" if backend == "pallas" else "scatter_add"
+    _three_steps(_cfg(backend, update, sampler, 16, refresh=2, history_len=H,
+                      table_format="int8"), replay, monkeypatch)
 
 
 @pytest.mark.parametrize("similarity", ["cosine", "dot"])
@@ -180,8 +287,11 @@ def test_losses_match_reference(similarity, mu, theta):
                                        atol=ATOL)
 
 
-def test_convert_round_trip():
-    cfg = _cfg("fused", "scatter_add", "auto", 16)
+@pytest.mark.parametrize("extra", [{}, dict(table_format="int8", history_len=H),
+                                   dict(history_len=H,
+                                        aggregation_kind="self_attn")])
+def test_convert_round_trip(extra):
+    cfg = _cfg("fused", "scatter_add", "auto", 16, **extra)
     tree = _tree(jmf.init_mf(jax.random.PRNGKey(0), cfg))
     state = convert.mf_state_from_numpy(tree)
     assert state.tile.tile_ids.dtype == torch.int64
@@ -218,12 +328,21 @@ def test_unported_names_raise_reference_error(field, name, in_reference):
         assert str(theirs.value).startswith(prefix)
 
 
-def test_unported_config_features_raise():
-    for over in (dict(table_format="int8"), dict(history_len=4)):
-        cfg = dataclasses.replace(_cfg("fused", "scatter_add", "auto", 0),
-                                  **over)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tmf.init_mf(0, cfg, device="cpu")
+@pytest.mark.parametrize("entry", ["init_mf", "resolve_engine"])
+def test_unknown_table_format_raises_reference_error(entry):
+    """An unknown table_format raises the reference's ValueError, word for
+    word, in both entry points."""
+    cfg = _cfg("fused", "scatter_add", "auto", 0, table_format="int4")
+    calls = {"init_mf": (lambda c: jmf.init_mf(jax.random.PRNGKey(0), c),
+                         lambda c: tmf.init_mf(0, c, device="cpu")),
+             "resolve_engine": (jeng.resolve_engine, teng.resolve_engine)}
+    theirs, ours = calls[entry]
+    with pytest.raises(ValueError) as want:
+        theirs(cfg)
+    with pytest.raises(ValueError) as got:
+        ours(tmf.MFConfig(**dataclasses.asdict(cfg)))
+    assert str(got.value) == str(want.value)
+    assert "table_format" in str(got.value)
 
 
 def test_pallas_backend_refuses_dot_similarity():
@@ -240,7 +359,7 @@ def test_step_is_pure_in_seed_and_step():
     outs = []
     for key in (5, 5, 6):
         state = tmf.init_mf(0, cfg, device="cpu")
-        batch = tmf.Batch(*(torch.as_tensor(x).long() for x in _batch(0)))
+        batch = tmf.Batch(*(torch.as_tensor(x).long() for x in _batch(0)[:2]))
         state, loss = tmf.heat_train_step(state, batch, key, cfg)
         outs.append((loss, state))
     (l0, s0), (l1, s1), (l2, s2) = outs
@@ -248,3 +367,94 @@ def test_step_is_pure_in_seed_and_step():
     assert torch.equal(s0.params.item_table, s1.params.item_table)
     assert torch.equal(s0.tile.tile_ids, s1.tile.tile_ids)
     assert not torch.equal(s0.tile.tile_ids, s2.tile.tile_ids)
+
+
+def _agg_inputs(kind, seed=0, b=6, h=4, k=8):
+    r = np.random.default_rng(seed)
+    user = r.standard_normal((b, k)).astype(np.float32)
+    hist = r.standard_normal((b, h, k)).astype(np.float32)
+    mask = (r.random((b, h)) < 0.6).astype(np.float32)
+    mask[0] = 0.0
+    mask[1] = 1.0
+    w = (r.standard_normal((k, k)) / np.sqrt(k)).astype(np.float32)
+    q = ((r.standard_normal((k, k)) / np.sqrt(k)).astype(np.float32)
+         if kind != "avg" else None)
+    return user, hist, mask, w, q
+
+
+@pytest.mark.parametrize("kind", ["avg", "self_attn", "user_attn"])
+def test_aggregate_and_gradients_match_reference(kind):
+    """The fused user and its gradients with respect to the user row, the
+    history rows and the aggregator weights, at 1e-5."""
+    user, hist, mask, w, q = _agg_inputs(kind)
+    cot = np.random.default_rng(1).standard_normal(user.shape).astype(np.float32)
+
+    def jfn(params, u, hh):
+        out = jagg.aggregate(params, u, hh, jnp.asarray(mask), gate=0.3, kind=kind)
+        return jnp.sum(out * cot), out
+
+    jparams = jagg.AggregatorParams(jnp.asarray(w),
+                                    None if q is None else jnp.asarray(q))
+    (_, want), jgrads = jax.value_and_grad(jfn, argnums=(0, 1, 2), has_aux=True)(
+        jparams, jnp.asarray(user), jnp.asarray(hist))
+    leaves = [torch.as_tensor(x).requires_grad_() for x in (user, hist, w)]
+    tq = None if q is None else torch.as_tensor(q).requires_grad_()
+    out = tagg.aggregate(tagg.AggregatorParams(leaves[2], tq), leaves[0],
+                         leaves[1], torch.as_tensor(mask), gate=0.3, kind=kind)
+    (out * torch.as_tensor(cot)).sum().backward()
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(want), atol=ATOL)
+    jp, ju, jh = jgrads
+    for got, ref in ((leaves[0], ju), (leaves[1], jh), (leaves[2], jp.w)):
+        np.testing.assert_allclose(got.grad.numpy(), np.asarray(ref), atol=ATOL)
+    if q is not None:
+        np.testing.assert_allclose(tq.grad.numpy(), np.asarray(jp.attn_q),
+                                   atol=ATOL)
+
+
+def test_aggregate_refuses_unknown_kind():
+    user, hist, mask, w, _ = _agg_inputs("avg")
+    with pytest.raises(ValueError, match="unknown aggregation kind"):
+        tagg.aggregate(tagg.AggregatorParams(torch.as_tensor(w)),
+                       torch.as_tensor(user), torch.as_tensor(hist),
+                       torch.as_tensor(mask), kind="max")
+
+
+@pytest.mark.parametrize("kind", ["avg", "user_attn"])
+def test_maybe_flush_matches_reference_over_two_intervals(kind):
+    """2 * flush_every steps of accumulate + maybe_flush from the same
+    weights and gradients: weights and accumulator agree after every step,
+    and the weights move exactly at the flushes."""
+    flush_every, lr = 3, 0.2
+    _, _, _, w, q = _agg_inputs(kind, seed=2)
+    jp = jagg.AggregatorParams(jnp.asarray(w), None if q is None else jnp.asarray(q))
+    tp = tagg.AggregatorParams(torch.as_tensor(w),
+                               None if q is None else torch.as_tensor(q))
+    ja, ta = jagg.accumulator_init(jp), tagg.accumulator_init(tp)
+    r = np.random.default_rng(3)
+    moved = []
+    for _ in range(2 * flush_every):
+        g = [r.standard_normal(w.shape).astype(np.float32) for _ in range(2)]
+        jg = jagg.AggregatorParams(jnp.asarray(g[0]),
+                                   None if q is None else jnp.asarray(g[1]))
+        tg = tagg.AggregatorParams(torch.as_tensor(g[0]),
+                                   None if q is None else torch.as_tensor(g[1]))
+        before = tp.w
+        jp, ja = jagg.maybe_flush(jagg.accumulate(ja, jg), jp, lr, flush_every)
+        tp, ta = tagg.maybe_flush(tagg.accumulate(ta, tg), tp, lr, flush_every)
+        moved.append(not torch.equal(before, tp.w))
+        assert ta.count == int(ja.count)
+        for got, want in zip(list(tp) + list(ta.grad_sum), list(jp) + list(ja.grad_sum)):
+            assert (got is None) == (want is None)
+            if got is not None:
+                np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+    assert moved == [False, False, True] * 2
+
+
+@pytest.mark.parametrize("kind", ["avg", "self_attn"])
+def test_init_aggregator_shapes(kind):
+    p = tagg.init_aggregator(torch.Generator().manual_seed(0), 8, kind)
+    assert p.w.shape == (8, 8)
+    assert (p.attn_q is None) == (kind == "avg")
+    acc = tagg.accumulator_init(p)
+    assert acc.count == 0 and torch.all(acc.grad_sum.w == 0)
+    assert (acc.grad_sum.attn_q is None) == (kind == "avg")
