@@ -4,10 +4,13 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` and drives its
-main paths through ``train_mf``: HEAT MF training with ``MF_100M_PALLAS``
-(400k users x 400k items, K=128, n=64 negatives, tile 1,024), and the
+main paths: through ``train_mf``, HEAT MF training with ``MF_100M_PALLAS``
+(400k users x 400k items, K=128, n=64 negatives, tile 1,024) and the
 paper-scale ``AMAZON`` model (20.98M users x 9.35M items, K=128, n=64,
-behavior aggregation, tile 1,024) with int8 tables.  Phases, one line each:
+behavior aggregation, tile 1,024) with int8 tables; through ``train_lm``,
+smollm-360m (32 layers, d=960, vocab 49,152) with the HEAT vocab head on the
+kernel backend; and the attention dispatcher ``ops.attention`` at
+smollm-360m's attention shape.  Phases, one line each:
 
   1. the card (name and power limit from nvidia-smi);
   2. the kernel build, with its seconds and each kernel's registers;
@@ -40,7 +43,28 @@ behavior aggregation, tile 1,024) with int8 tables.  Phases, one line each:
   9. an int8 restart: ``MF_100M_PALLAS`` with int8 tables, a 16-item
      history and a tile refresh every 8 steps, 32 steps uninterrupted and
      again with a checkpoint every 8 steps and a failure injected at step
-     13; every leaf of the two final states must be identical.
+     13; every leaf of the two final states must be identical;
+ 10. smollm-360m at full width and depth, batch 8 x sequence 1,024, AdamW at
+     lr 1e-3, ``remat="full"``, the HEAT head (n=64 shared negatives from the
+     2,048-id vocab tile) on ``backend="pallas"``: 32 steps through
+     ``train_lm`` on one fixed batch, in windows of 8: finite losses, one
+     shared-stats and one shared-backward launch per step and no other
+     kernel, the loss on that batch (fixed negatives) falling from the
+     initial state, steps/s and tokens/s over one more steady window, peak
+     device memory, and a profiled window;
+ 11. the shared-layout CCL kernels against their plain versions on the head's
+     own inputs from the trained model (a fixed batch: T = 8 x 1,023 rows,
+     K = 960, n = 64), with the kernel loss's autograd Function against the
+     same Function on the CPU (its plain versions), and
+     the flash-attention kernel against its plain version on unit-normal
+     q, k, v at smollm-360m's attention shape (B=8, Hq=15, Hkv=5, S=1,024,
+     D=64), causal and not: errors, times and bounds as in phase 3;
+ 12. the attention path: ``ops.attention`` on the trained model's layer-0
+     queries, keys and values, against the model's own chunked attention;
+ 13. an LM restart: smollm-360m at full width and 4 layers, a vocab-tile
+     refresh every 4 steps, 8 steps uninterrupted and again with a
+     checkpoint every 4 steps and a failure injected at step 6; every
+     parameter, moment and tile leaf must be identical.
 
 Then it prints the kernels' JSON line, the card line, and as its last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
@@ -70,6 +94,13 @@ STEPS, WINDOW = 64, 16
 INT8_STEPS, RESTART_STEPS = 64, 32
 DEQUANT_IDS = (1024, 16384)     # the sizes of AMAZON's user and history gathers
 RTOL, ATOL = 1e-5, 1e-6      # |kernel - plain| <= ATOL + RTOL * |plain|
+LM_B, LM_S, LM_STEPS, LM_WINDOW, LM_LR = 8, 1024, 32, 8, 1e-3
+LM_RESTART_LAYERS, LM_RESTART_STEPS = 4, 8
+#: the attention path's check against the model's chunked attention, relative
+#: to the output's largest element: two fp32 orders of a softmax whose logits
+#: are of order 16 at this init (wq's fan-in is Hq, as in the reference), so
+#: an elementwise relative check would fail near-zero outputs.
+ATTN_PATH_RTOL = 1e-5
 
 
 def card_line() -> str:
@@ -121,7 +152,8 @@ def time_ms(fn, flush, reps: int = 30) -> float:
 
 
 def profile_window(executor, state, start: int, length: int,
-                   t_unprofiled: float, label: str = "7 profile") -> str:
+                   t_unprofiled: float, label: str = "7 profile",
+                   top_n: int = 6) -> str:
     """Profile one more window of a main path: kernel launches and device
     busy time per step, against the unprofiled window's wall time."""
     import torch
@@ -136,7 +168,7 @@ def profile_window(executor, state, start: int, length: int,
         return f"[{label}] the profiler saw no device time: not measured"
     launches = sum(e.count for e in kern) / length
     step_us = 1e6 * t_unprofiled / length
-    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:6]
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:top_n]
     names = ", ".join(f"{e.key[:48]} {e.self_device_time_total / length:.1f} us"
                       for e in top)
     return (f"[{label}] per step: {launches:.0f} kernel launches, device "
@@ -209,6 +241,291 @@ def dequant_summary(kd: dict) -> str:
             f"partial yardstick)")
 
 
+def lm_eval_loss(params, cfg, opts, tile, dev) -> float:
+    """The HEAT loss on the fixed batch phase 10 trains on (``lm_batch``
+    seed 0, step 0) with the fixed key 1000 and a fixed tile, without
+    gradients."""
+    import torch
+    from repro_torch.data import pipeline
+    from repro_torch.models import lm
+    batch = pipeline.lm_batch(0, LM_B, LM_S, cfg.vocab, seed=0, device=dev)
+    with torch.no_grad():
+        loss, _ = lm.forward_train(params, batch, cfg, opts, 1000, tile)
+    return loss.item()
+
+
+def lm_head_inputs(params, cfg, opts, tile, dev):
+    """The HEAT head's inputs for :func:`lm_eval_loss`'s batch and key:
+    hidden rows u (T, d), positives p (T, d), the n shared negatives (n, d),
+    and the batch."""
+    import torch
+    from repro_torch.core import mf
+    from repro_torch.data import pipeline
+    from repro_torch.models import lm
+    batch = pipeline.lm_batch(0, LM_B, LM_S, cfg.vocab, seed=0, device=dev)
+    table = params["out_embed"]
+    with torch.no_grad():
+        h = lm._run_stack(params, lm.embed_inputs(params, batch, cfg), cfg, opts)
+        u = h[:, :-1].reshape(-1, cfg.d_model).contiguous()
+        p = table[batch["tokens"][:, 1:].reshape(-1)]
+        local = torch.randint(0, tile.tile_ids.numel(), (cfg.heat.num_negatives,),
+                              generator=mf.generator(mf.fold_in(1000, mf.NEG_SALT),
+                                                     dev), device=dev)
+        negs = table[tile.tile_ids[local]]
+    return u, p, negs, batch
+
+
+def lm_phases(dev, card: str, flush, counters) -> list:
+    """Phases 10-13 (the LM slice); returns the kernels line's entries of
+    the shared-layout CCL kernels and the flash-attention kernel."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import mf
+    from repro_torch.data import pipeline
+    from repro_torch.kernels import ccl_similarity, flash_attention, ops, ref
+    from repro_torch.models import layers, lm
+    from repro_torch.optim.optimizers import get_optimizer
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import trainer
+
+    base = get_config("smollm-360m")
+    cfg = dataclasses.replace(base, heat=dataclasses.replace(base.heat,
+                                                             backend="pallas"))
+    opts = lm.TrainOptions(loss="heat", remat="full", attn_chunk=LM_S)
+    # A fixed batch: on fresh batches of uniform tokens from a 49,152-word
+    # vocab a token recurs about five times in 32 steps, too few for a loss
+    # on held-out tokens to move; the fixed batch shows that the step learns.
+    tcfg = trainer.TrainerConfig(steps=LM_STEPS, lr=LM_LR, batch_size=LM_B,
+                                 seq_len=LM_S, optimizer="adamw", log_every=0,
+                                 steps_per_dispatch=LM_WINDOW, fixed_batch=True)
+
+    # ---- 10: smollm-360m through train_lm ----------------------------------
+    init = trainer.init_lm_state(tcfg.seed, cfg, opts, get_optimizer("adamw"),
+                                 device=dev)                   # train_lm's init
+    tile0 = init.tile
+    eval_before = lm_eval_loss(init.params, cfg, opts, tile0, dev)
+    n_params = sum(x.numel() for _, x in ckpt.named_leaves(init.params))
+    del init
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters:
+        c.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, losses = trainer.train_lm(cfg, opts, tcfg, device="cuda",
+                                     log=lambda *_: None)
+    torch.cuda.synchronize()
+    t_train = time.perf_counter() - t0
+    launches = {c.name: c.count() for c in counters}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    assert len(losses) == LM_STEPS and all(math.isfinite(x) for x in losses), losses
+    want = {c.name: 0 for c in counters}
+    want.update(ccl_stats_shared=LM_STEPS, ccl_bwd_shared=LM_STEPS)
+    assert launches == want, launches
+    eval_after = lm_eval_loss(state.params, cfg, opts, tile0, dev)
+    assert eval_after < eval_before, f"LM loss did not fall: {eval_before} -> {eval_after}"
+    step_fn = trainer.make_lm_train_step_raw(cfg, opts, get_optimizer("adamw"),
+                                             LM_LR)
+
+    def body(s, step):                          # train_lm's step, fixed batch
+        batch = pipeline.lm_batch(0, LM_B, LM_S, cfg.vocab, tcfg.seed, dev)
+        return step_fn(s, batch, mf.fold_in(tcfg.seed, step))
+
+    executor = trainer.EpochExecutor(body, LM_WINDOW)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, window = executor.run(state, LM_STEPS, LM_WINDOW)
+    torch.cuda.synchronize()
+    t_steady = time.perf_counter() - t0
+    assert bool(torch.isfinite(window).all())
+    rate = LM_WINDOW / t_steady
+    print(f"[10 lm train] smollm-360m ({cfg.n_layers} layers, d={cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads, vocab {cfg.vocab}, "
+          f"{n_params} parameters) batch {LM_B} x {LM_S}, AdamW lr {LM_LR}, "
+          f"remat full, HEAT head pallas (n={cfg.heat.num_negatives}, tile "
+          f"{cfg.heat.tile_size}), one fixed batch: {LM_STEPS} steps, loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f} (window means "
+          f"{statistics.mean(losses[:LM_WINDOW]):.4f} -> "
+          f"{statistics.mean(losses[-LM_WINDOW:]):.4f}); fixed-batch loss {eval_before:.6f} -> "
+          f"{eval_after:.6f}; launches {launches}; {LM_STEPS / t_train:.3f} "
+          f"steps/s including init, {rate:.3f} steps/s = {rate * LM_B * LM_S:.0f} "
+          f"tokens/s over one more {LM_WINDOW}-step window; peak device memory "
+          f"{peak_gb:.2f} GB | {card}", flush=True)
+    print(profile_window(executor, state, LM_STEPS + LM_WINDOW, 4,
+                         t_steady * 4 / LM_WINDOW, label="10 profile", top_n=12),
+          flush=True)
+    del executor, body, step_fn
+
+    # ---- 11: the LM kernels against their plain versions -------------------
+    kernels = []
+    u, p, negs, batch = lm_head_inputs(state.params, cfg, opts, tile0, dev)
+    t_rows, k = u.shape
+    n = negs.shape[0]
+    stats = ccl_similarity.ccl_stats_shared(u, p, negs)
+    err = max_err(stats, ccl_similarity.ccl_stats_shared_plain(u, p, negs))
+    b_ms, b_by = bound(4 * (2 * t_rows * k + n * k) + 4 * (3 * t_rows + n + t_rows * n),
+                       2 * t_rows * k * (3 + n) + 2 * n * k)
+    kernels.append(dict(
+        name="ccl_stats_shared", route="cuda",
+        source="src/repro_torch/csrc/ccl_stats_shared.cu",
+        replaces="src/repro/kernels/ccl_similarity.py:128", max_abs_err=err,
+        ms=time_ms(lambda: ccl_similarity.ccl_stats_shared(u, p, negs), flush),
+        plain_ms=time_ms(lambda: ccl_similarity.ccl_stats_shared_plain(u, p, negs),
+                         flush),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=time_ms(lambda: torch.matmul(u, negs.T), flush)))
+    # Cotangent T: each row's weight (1/T) times g is 1, so the gradients are
+    # of order one, not 1/T.
+    w = torch.full((t_rows, 1), 1.0 / t_rows, device=dev)
+    g = torch.full((1,), float(t_rows), device=dev)
+    bwd_args = (u, p, negs, *stats, w, g)
+    err = max_err(ccl_similarity.ccl_bwd_shared(*bwd_args, mu=1.0, theta=0.0),
+                  ccl_similarity.ccl_bwd_shared_plain(*bwd_args, mu=1.0, theta=0.0))
+    nbytes = (4 * (2 * t_rows * k + n * k + 4 * t_rows + n + t_rows * n + 1)
+              + 4 * (2 * t_rows * k + n * k))
+    b_ms, b_by = bound(nbytes, 4 * t_rows * n * k + 10 * t_rows * k + 10 * t_rows * n)
+    kernels.append(dict(
+        name="ccl_bwd_shared", route="cuda",
+        source="src/repro_torch/csrc/ccl_bwd_shared.cu",
+        replaces="src/repro/kernels/ccl_similarity.py:214", max_abs_err=err,
+        ms=time_ms(lambda: ccl_similarity.ccl_bwd_shared(*bwd_args, mu=1.0,
+                                                         theta=0.0), flush),
+        plain_ms=time_ms(lambda: ccl_similarity.ccl_bwd_shared_plain(
+            *bwd_args, mu=1.0, theta=0.0), flush),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None))
+    for kd in kernels:
+        kd["launches"] = launches[kd["name"]]
+
+    def loss_and_grads(device):
+        leaves = [x.to(device).requires_grad_() for x in (u, p, negs, w[:, 0])]
+        loss = ops.make_ccl_loss_shared_kernel(1.0, 0.0)(*leaves)
+        du, dp, dn, dw = torch.autograd.grad(loss, leaves)
+        return [loss.detach().cpu(), t_rows * du.cpu(), t_rows * dp.cpu(),
+                t_rows * dn.cpu(), dw.cpu()]
+
+    # The kernel loss's autograd Function on the card against the same
+    # Function on the CPU, where it runs the plain versions: both form un in
+    # fp64, so a near-zero similarity has the same sign (the hinge) in both.
+    got = loss_and_grads(dev)
+    want_lg = loss_and_grads("cpu")
+    loss_err = max_err(got, want_lg)
+    for kd in kernels:
+        lib = "none" if kd["library_ms"] is None else "%.4f ms" % kd["library_ms"]
+        print(f"[11 kernel] {kd['name']} on the head's inputs (T={t_rows}, "
+              f"K={k}, n={n}): max abs err {kd['max_abs_err']:.3e} (tol {ATOL:g} "
+              f"+ {RTOL:g}*|plain|); {kd['ms']:.4f} ms kernel, {kd['plain_ms']:.4f} "
+              f"ms plain, bound {kd['bound_ms']:.4f} ms ({kd['bound_by']}), "
+              f"library {lib} | {card}", flush=True)
+    print(f"[11 loss] shared kernel loss on the card {got[0].item():.6f} vs its "
+          f"plain versions on the CPU {want_lg[0].item():.6f}; loss, "
+          f"T*gradients of u, p, negs and the gradient of w: max abs err "
+          f"{loss_err:.3e}", flush=True)
+    del stats, bwd_args, got, want_lg
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(14)
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = torch.randn(LM_B, hq, LM_S, hd, generator=gen, device=dev)
+    kk = torch.randn(LM_B, hkv, LM_S, hd, generator=gen, device=dev)
+    vv = torch.randn(LM_B, hkv, LM_S, hd, generator=gen, device=dev)
+    kr, vr = (x.repeat_interleave(hq // hkv, dim=1) for x in (kk, vv))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    nbytes = 4 * (2 * LM_B * hq * LM_S * hd + 2 * LM_B * hkv * LM_S * hd)
+    flash_entries = {}
+    for causal in (True, False):
+        pairs = LM_S * (LM_S + 1) // 2 if causal else LM_S * LM_S
+        b_ms, b_by = bound(nbytes, 4 * LM_B * hq * hd * pairs)
+        err = max_err([flash_attention.flash_attention(q, kk, vv, causal=causal)],
+                      [ref.attention_ref(q, kk, vv, causal=causal)])
+        kd = dict(
+            name="flash_attention", route="cuda",
+            source="src/repro_torch/csrc/flash_attention.cu",
+            replaces="src/repro/kernels/flash_attention.py:76", max_abs_err=err,
+            ms=time_ms(lambda: flash_attention.flash_attention(q, kk, vv,
+                                                               causal=causal),
+                       flush),
+            plain_ms=time_ms(lambda: ref.attention_ref(q, kk, vv, causal=causal),
+                             flush),
+            bound_ms=b_ms, bound_by=b_by,
+            library_ms=time_ms(lambda: sdpa(q, kr, vr, is_causal=causal), flush))
+        flash_entries[causal] = kd
+        print(f"[11 kernel] flash_attention {'causal' if causal else 'full'} "
+              f"(B={LM_B}, Hq={hq}, Hkv={hkv}, S={LM_S}, D={hd}, unit-normal "
+              f"q, k, v): max abs err {err:.3e} (tol {ATOL:g} + {RTOL:g}*|plain|); "
+              f"{kd['ms']:.4f} ms kernel, {kd['plain_ms']:.4f} ms plain, bound "
+              f"{kd['bound_ms']:.4f} ms ({kd['bound_by']}), library "
+              f"{kd['library_ms']:.4f} ms (scaled_dot_product_attention, fp32, "
+              f"KV repeated) | {card}", flush=True)
+    del q, kk, vv, kr, vr
+
+    # ---- 12: the attention path ---------------------------------------------
+    with torch.no_grad():
+        lp = lm._layers(state.params["blocks"], cfg.n_layers)[0]
+        x = layers.rms_norm(lm.embed_inputs(state.params, batch, cfg), lp["ln1"],
+                            cfg.norm_eps)
+        cos, sin = layers.rope_cos_sin(lm._positions(LM_B, LM_S, dev),
+                                       cfg.head_dim, cfg.rope_theta)
+        qm = layers.apply_rope(torch.einsum("bsd,dhk->bshk", x, lp["attn"]["wq"]),
+                               cos, sin)
+        km = layers.apply_rope(torch.einsum("bsd,dhk->bshk", x, lp["attn"]["wk"]),
+                               cos, sin)
+        vm = torch.einsum("bsd,dhk->bshk", x, lp["attn"]["wv"])
+        want_attn = layers.chunked_attention(qm, km, vm, causal=True,
+                                             chunk=LM_S).transpose(1, 2)
+        qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (qm, km, vm))
+        for c in counters:
+            c.reset()
+        got_attn = ops.attention(qt, kt, vt, causal=True)
+        torch.cuda.synchronize()
+        path_launches = {c.name: c.count() for c in counters}
+    assert path_launches["flash_attention"] == 1, path_launches
+    assert bool(torch.isfinite(got_attn).all()) and got_attn.shape == qt.shape
+    scale = want_attn.abs().max().item()
+    path_err = (got_attn - want_attn).abs().max().item()
+    assert path_err <= ATTN_PATH_RTOL * scale, (path_err, scale)
+    flash_entries[True]["launches"] = path_launches["flash_attention"]
+    kernels.append(flash_entries[True])
+    print(f"[12 attention path] ops.attention on the trained model's layer-0 "
+          f"q, k, v ({tuple(qt.shape)}, causal): launches {path_launches}; max abs "
+          f"difference from the model's chunked attention {path_err:.3e}, "
+          f"largest |output| {scale:.3e} (tol {ATTN_PATH_RTOL:g} x largest) | "
+          f"{card}", flush=True)
+    del state, u, p, negs, batch, lp, x, qm, km, vm, want_attn, qt, kt, vt, got_attn
+    torch.cuda.empty_cache()
+
+    # ---- 13: an LM restart, bit for bit -------------------------------------
+    cfg_r = dataclasses.replace(cfg, n_layers=LM_RESTART_LAYERS, heat=dataclasses.replace(
+        cfg.heat, refresh_interval=4))
+    tcfg_r = dataclasses.replace(tcfg, steps=LM_RESTART_STEPS, steps_per_dispatch=4)
+    t0 = time.perf_counter()
+    clean, _ = trainer.train_lm(cfg_r, opts, tcfg_r, device="cuda",
+                                log=lambda *_: None)
+    logs = []
+    with tempfile.TemporaryDirectory() as d:
+        healed, _ = trainer.train_lm(
+            cfg_r, opts, dataclasses.replace(tcfg_r, ckpt_dir=d, ckpt_every=4,
+                                             fail_at_step=6),
+            device="cuda", log=logs.append)
+        saved = ckpt.valid_steps(d)
+    torch.cuda.synchronize()
+    t_restart = time.perf_counter() - t0
+    assert logs == ["[trainer] injected failure at step 6 -> restoring latest "
+                    "checkpoint"], logs
+    names = []
+    for (name, a), (name_b, b) in zip(ckpt.named_leaves(clean),
+                                      ckpt.named_leaves(healed), strict=True):
+        same = torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
+        assert name == name_b and same, f"LM restart differs at {name}"
+        names.append(name)
+    print(f"[13 lm restart] smollm-360m at full width, {LM_RESTART_LAYERS} layers, "
+          f"tile refresh every 4: {LM_RESTART_STEPS} steps clean and with a "
+          f"failure at step 6 healed from the step-4 checkpoint (checkpoints "
+          f"{saved}): all {len(names)} leaves (parameters, AdamW moments, "
+          f"count, tile, step) identical bit for bit; {t_restart:.1f} s | {card}",
+          flush=True)
+    return kernels
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -219,7 +536,13 @@ def main() -> int:
     from repro_torch.core import mf
     from repro_torch.core.losses import ccl_loss_fused
     from repro_torch.data import pipeline
-    from repro_torch.kernels import _build, ccl_similarity, embedding_update, ops
+    from repro_torch.kernels import (
+        _build,
+        ccl_similarity,
+        embedding_update,
+        flash_attention,
+        ops,
+    )
     from repro_torch.train import checkpoint as ckpt
     from repro_torch.train import trainer
 
@@ -351,7 +674,11 @@ def main() -> int:
                             MF_100M_PALLAS, dds)
     counters = (ccl_similarity.STATS_LAUNCHES, ccl_similarity.BWD_LAUNCHES,
                 embedding_update.GATHER_FMA_LAUNCHES,
-                embedding_update.GATHER_DEQUANT_LAUNCHES)
+                embedding_update.GATHER_DEQUANT_LAUNCHES,
+                ccl_similarity.SHARED_STATS_LAUNCHES,
+                ccl_similarity.SHARED_BWD_LAUNCHES,
+                flash_attention.FLASH_LAUNCHES)
+    lm_idle = {"ccl_stats_shared": 0, "ccl_bwd_shared": 0, "flash_attention": 0}
     for c in counters:
         c.reset()
     torch.cuda.synchronize()
@@ -371,7 +698,8 @@ def main() -> int:
     # One stats and one backward launch per step; one gather-FMA launch per
     # table per step (the user update, then the item groups' fused update).
     assert launches == {"ccl_stats": STEPS, "ccl_bwd": STEPS,
-                        "gather_fma": 2 * STEPS, "gather_dequant": 0}, launches
+                        "gather_fma": 2 * STEPS, "gather_dequant": 0,
+                        **lm_idle}, launches
     for kd in kernels:
         kd["launches"] = launches[kd["name"]]
     body = mf.make_scan_body(MF_100M_PALLAS, lambda s: pipeline.cf_batch_device(
@@ -445,7 +773,8 @@ def main() -> int:
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     assert len(losses) == INT8_STEPS and all(math.isfinite(x) for x in losses), losses
     assert launches8 == {"ccl_stats": INT8_STEPS, "ccl_bwd": INT8_STEPS,
-                         "gather_fma": 0, "gather_dequant": 3 * INT8_STEPS}, launches8
+                         "gather_fma": 0, "gather_dequant": 3 * INT8_STEPS,
+                         **lm_idle}, launches8
     payload = {str(t.q.dtype) for t in (state.params.user_table,
                                         state.params.item_table)}
     assert payload == {"torch.int8"}, payload
@@ -528,6 +857,10 @@ def main() -> int:
           f"from the step-8 checkpoint (checkpoints {saved}): all {len(names)} "
           f"leaves identical bit for bit ({', '.join(names)}); {t_restart:.1f} s "
           f"| {card}", flush=True)
+
+    del clean, healed, ds, dds
+    torch.cuda.empty_cache()
+    kernels += lm_phases(dev, card, flush, counters)
 
     print(json.dumps({"kernels": kernels}))
     print(card)

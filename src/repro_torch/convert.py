@@ -1,4 +1,4 @@
-"""Carry an MF training state between the JAX reference and the port.
+"""Carry an MF or LM training state between the JAX reference and the port.
 
 The interchange form is a flat dict of numpy arrays keyed by the checkpoint
 leaf names (``train/checkpoint.py::named_leaves``, the same names as the
@@ -12,7 +12,15 @@ reference's ``src/repro/train/checkpoint.py``)::
     step                                      ()
 
 so a test builds it from a reference state with one tree flatten and both
-packages then start from the same numbers.
+packages then start from the same numbers.  An LM state's names are the
+reference's ``jax.tree_util`` paths of ``LMTrainState``::
+
+    params/<tree path>                        e.g. params/blocks/attn/wq
+    opt_state/moments/<tree path>/{mu,nu}     AdamW's moments
+    opt_state/moments/<tree path>             SGD with momentum
+    opt_state/count                           () int32
+    tile/tile_ids, tile/step                  the id-only vocab tile, if any
+    step                                      ()
 """
 from __future__ import annotations
 
@@ -22,8 +30,11 @@ import torch
 from repro_torch.core.aggregation import AccumulatorState, AggregatorParams
 from repro_torch.core.mf import MFParams, MFState
 from repro_torch.core.samplers import TileState
+from repro_torch.models.params import tree_from_items
+from repro_torch.optim.optimizers import AdamMoments, OptState
 from repro_torch.optim.quantization import QuantizedTable
 from repro_torch.train.checkpoint import leaf_to_numpy, named_leaves
+from repro_torch.train.trainer import LMTrainState
 
 
 def mf_state_from_numpy(tree: dict, device="cpu") -> MFState:
@@ -64,4 +75,47 @@ def mf_state_to_numpy(state: MFState) -> dict:
     """The numpy leaf dict of a port :class:`MFState` (inverse of
     :func:`mf_state_from_numpy`), with the checkpoint's dtypes: tile ids
     int32 and counters 0-d int32, as the reference keeps them."""
+    return {name: leaf_to_numpy(leaf) for name, leaf in named_leaves(state)}
+
+
+def _subtree(tree: dict, prefix: str, device):
+    """The nested dict of tensors under ``prefix/`` (None when absent)."""
+    items = [(name[len(prefix) + 1:], torch.as_tensor(np.array(arr),
+                                                      device=device))
+             for name, arr in tree.items() if name.startswith(prefix + "/")]
+    return tree_from_items(items) if items else None
+
+
+def _moments(node):
+    """Turn ``{"mu": ..., "nu": ...}`` leaf dicts into ``AdamMoments``."""
+    if isinstance(node, dict):
+        if set(node) == {"mu", "nu"} and not isinstance(node["mu"], dict):
+            return AdamMoments(node["mu"], node["nu"])
+        return {k: _moments(v) for k, v in node.items()}
+    return node
+
+
+def lm_state_from_numpy(tree: dict, device="cpu") -> LMTrainState:
+    """Build a port :class:`~repro_torch.train.trainer.LMTrainState` on
+    ``device`` from the numpy leaf dict (tile ids become int64, the tile
+    and train steps host ints, the optimizer count a 0-d int32 tensor)."""
+    tile = None
+    if "tile/tile_ids" in tree:
+        tile = TileState(
+            tile_ids=torch.as_tensor(np.array(tree["tile/tile_ids"]),
+                                     dtype=torch.int64, device=device),
+            tile_emb=torch.as_tensor(np.array(tree["tile/tile_emb"]),
+                                     device=device)
+            if "tile/tile_emb" in tree else None,
+            step=int(tree["tile/step"]))
+    opt = OptState(_moments(_subtree(tree, "opt_state/moments", device)),
+                   torch.as_tensor(np.array(tree["opt_state/count"]),
+                                   dtype=torch.int32, device=device))
+    return LMTrainState(params=_subtree(tree, "params", device),
+                        opt_state=opt, tile=tile, step=int(tree["step"]))
+
+
+def lm_state_to_numpy(state: LMTrainState) -> dict:
+    """The numpy leaf dict of a port LM state (inverse of
+    :func:`lm_state_from_numpy`)."""
     return {name: leaf_to_numpy(leaf) for name, leaf in named_leaves(state)}

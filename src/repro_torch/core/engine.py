@@ -20,8 +20,12 @@ A :class:`StepEngine` bundles the three decisions a training step makes:
 
 The item table a sampler draws from may be fp32 or int8 (gathers go
 through ``optim/quantization.py``).  Names the port does not have yet raise
-the reference's ``ValueError``, listing what the port has.  Per-example ``(B, n, K)`` negatives only; the
-step-shared layout and masks wait for the LM slice.
+the reference's ``ValueError``, listing what the port has.  As in the
+reference, the loss contract is polymorphic over negative layouts: every
+loss takes per-example ``(B, n, K)`` negatives (the MF step) and
+step-shared ``(n, K)`` negatives (the LM HEAT head), plus an optional
+per-row ``mask``; ``pallas`` refuses a mask on per-example negatives, as the
+reference's does.
 """
 from __future__ import annotations
 
@@ -31,11 +35,17 @@ from typing import Callable, NamedTuple, Optional, Protocol, runtime_checkable
 import torch
 
 from repro_torch.core import samplers
-from repro_torch.core.losses import ccl_loss_autodiff, ccl_loss_fused
+from repro_torch.core.losses import (
+    ccl_loss_autodiff,
+    ccl_loss_fused,
+    ccl_loss_fused_w,
+    loss_weights,
+)
 from repro_torch.core.tiling import concat_groups
 from repro_torch.kernels.ops import (
     fused_rows_update,
     make_ccl_loss_kernel,
+    make_ccl_loss_shared_kernel,
     sparse_row_update,
 )
 from repro_torch.optim import quantization as qz
@@ -97,7 +107,8 @@ class NegSample(NamedTuple):
 @runtime_checkable
 class NegativeSampler(Protocol):
     """``sample(state, gen, shape) -> NegSample``: ``gen`` is the step's
-    ``torch.Generator`` for this draw and ``shape`` is ``(B, n)``."""
+    ``torch.Generator`` for this draw and ``shape`` is ``(B, n)`` for
+    per-example negatives or ``(n,)`` for a step-shared set."""
 
     name: str
 
@@ -119,8 +130,9 @@ class UniformSampler:
 
 @register_sampler("tile")
 class TileSampler:
-    """HEAT §4.2 random tiling: draw from the resident tile by local slot;
-    the rows come from the tile copy, not the table."""
+    """HEAT §4.2 random tiling: draw from the resident tile by local slot.
+    The rows come from the tile copy, or, for an id-only tile (the LM vocab
+    tile), from the live table, so gradients reach it."""
 
     name = "tile"
 
@@ -132,8 +144,10 @@ class TileSampler:
                 "context (cfg.tile_size > 0)")
         local = torch.randint(0, tile.tile_ids.shape[0], tuple(shape),
                               generator=gen, device=gen.device)
-        return NegSample(tile.tile_ids[local], tile.tile_emb[local], state,
-                         local_idx=local)
+        ids = tile.tile_ids[local]
+        embs = (qz.gather_rows(state.table, ids) if tile.tile_emb is None
+                else tile.tile_emb[local])
+        return NegSample(ids, embs, state, local_idx=local)
 
 
 @register_sampler("auto")
@@ -164,23 +178,18 @@ class StepEngine:
         return f"{self.backend}+{self.update_impl}+{self.sampler_name}"
 
 
-def _per_example(neg_e, mask, backend: str) -> None:
-    if neg_e.dim() != 3 or mask is not None:
-        raise NotImplementedError(
-            f"backend={backend!r}: step-shared negatives and masks belong to "
-            "the LM slice of the port (ROADMAP.md, queue A, item 7)")
-
-
 @register_loss("fused")
 def _loss_fused(user_e, pos_e, neg_e, *, mu, theta, similarity, mask=None):
-    _per_example(neg_e, mask, "fused")
-    return ccl_loss_fused(user_e, pos_e, neg_e, mu, theta, similarity)
+    if neg_e.dim() == 3 and mask is None:
+        return ccl_loss_fused(user_e, pos_e, neg_e, mu, theta, similarity)
+    w = loss_weights(mask, user_e.shape[0], user_e.dtype, user_e.device)
+    return ccl_loss_fused_w(user_e, pos_e, neg_e, w, mu, theta, similarity)
 
 
 @register_loss("autodiff")
 def _loss_autodiff(user_e, pos_e, neg_e, *, mu, theta, similarity, mask=None):
-    _per_example(neg_e, mask, "autodiff")
-    return ccl_loss_autodiff(user_e, pos_e, neg_e, mu, theta, similarity)
+    return ccl_loss_autodiff(user_e, pos_e, neg_e, mu, theta, similarity,
+                             mask=mask)
 
 
 @register_loss("pallas")
@@ -189,8 +198,15 @@ def _loss_pallas(user_e, pos_e, neg_e, *, mu, theta, similarity, mask=None):
         raise ValueError(
             "backend='pallas' implements cosine similarity only "
             f"(got similarity={similarity!r})")
-    _per_example(neg_e, mask, "pallas")
-    return make_ccl_loss_kernel(mu, theta)(user_e, pos_e, neg_e)
+    if neg_e.dim() == 3:
+        if mask is not None:
+            raise ValueError(
+                "backend='pallas' does not implement masked per-example "
+                "negatives; use backend='fused' (the LM head's shared "
+                "layout supports masks)")
+        return make_ccl_loss_kernel(mu, theta)(user_e, pos_e, neg_e)
+    w = loss_weights(mask, user_e.shape[0], user_e.dtype, user_e.device)
+    return make_ccl_loss_shared_kernel(mu, theta)(user_e, pos_e, neg_e, w)
 
 
 @register_update("scatter_add")

@@ -10,9 +10,13 @@ normalized form: nothing is recomputed.  Paper Eq. 5 is printed with a sign
 that contradicts Eq. 4; the backward uses the correct sign, as the reference
 ``src/repro/core/losses.py`` does.
 
-:func:`ccl_loss_autodiff` keeps the plain-autograd version as the oracle.
-The weighted/shared ``ccl_loss_fused_w``, the SimpleX bmm, MSE and BPR
-baselines wait for the LM slice.
+:class:`CCLFusedW` (``ccl_loss_fused_w``) is the weighted form for both
+negative layouts: per-example ``(B, n, K)`` and the LM head's step-shared
+``(n, K)``, with per-row weights ``w`` (:func:`loss_weights`) so masked rows
+drop out of the loss and the backward, and the gradient of ``w`` returned
+too.  :func:`ccl_loss_autodiff` keeps the plain-autograd version as the
+oracle, for both layouts and masks.  The SimpleX bmm, MSE and BPR baselines
+wait for a later slice.
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ from repro_torch.core.similarity import (
     cosine_from_stats,
     cosine_from_stats_with_norms,
     dot_from_stats,
+    layout_stats,
     pair_stats,
 )
 
@@ -30,6 +35,16 @@ def _ccl_rows(pos_sim, neg_sim, mu: float, theta: float):
     """Per-row Eq. 3 losses: (1 - x_ui) + mu/|N| * sum_j relu(x_uj - theta)."""
     neg_part = torch.clamp_min(neg_sim - theta, 0.0)
     return (1.0 - pos_sim) + (mu / neg_sim.shape[-1]) * neg_part.sum(-1)
+
+
+def loss_weights(mask, rows: int, dtype, device) -> torch.Tensor:
+    """Normalized per-row weights of the loss contract: ``mask=None`` ->
+    ``1/rows`` each (a plain mean); a mask (any shape with ``rows``
+    elements) -> ``m / max(sum(m), 1)``, so masked rows count nothing."""
+    if mask is None:
+        return torch.full((rows,), 1.0 / rows, dtype=dtype, device=device)
+    m = mask.reshape(rows).to(dtype)
+    return m / torch.clamp_min(torch.sum(m), 1.0)
 
 
 def _sims(res, similarity: str):
@@ -104,9 +119,86 @@ def ccl_loss_fused(user, pos, negs, mu: float = 1.0, theta: float = 0.0,
     return CCLFused.apply(user, pos, negs, float(mu), float(theta), similarity)
 
 
+class CCLFusedW(torch.autograd.Function):
+    """Weighted CCL ``sum_t w_t * L_t`` for per-example (B, n, K) or shared
+    (n, K) negatives, with the analytic backward from saved residuals
+    (``src/repro/core/losses.py`` ``_ccl_w_fwd``/``_ccl_w_bwd``); the
+    shared negatives' gradient sums every row's Eq. 5 contribution, and the
+    gradient of ``w`` is ``g`` times the row losses."""
+
+    @staticmethod
+    def forward(ctx, user, pos, negs, w, mu: float, theta: float,
+                similarity: str):
+        if similarity not in ("cosine", "dot"):
+            raise ValueError(f"unknown similarity {similarity!r}")
+        res = layout_stats(user, pos, negs)
+        ctx.mu, ctx.theta, ctx.similarity = mu, theta, similarity
+        if similarity == "dot":
+            ps, ns = dot_from_stats(res)
+            ctx.save_for_backward(user, pos, negs, ps, ns, w)
+            return torch.sum(_ccl_rows(ps, ns, mu, theta) * w)
+        ps, ns, inv_u, inv_p, inv_n = cosine_from_stats_with_norms(res)
+        u_hat = user * inv_u[:, None]
+        p_hat = pos * inv_p[:, None]
+        ctx.save_for_backward(u_hat, p_hat, negs, inv_u, inv_p, inv_n, ps, ns,
+                              w)
+        return torch.sum(_ccl_rows(ps, ns, mu, theta) * w)
+
+    @staticmethod
+    def backward(ctx, g):
+        mu, theta = ctx.mu, ctx.theta
+        shared = ctx.saved_tensors[2].dim() == 2
+        if ctx.similarity == "dot":
+            user, pos, negs, ps, ns, w = ctx.saved_tensors
+            n = ns.shape[-1]
+            d_ps = -g * w
+            d_ns = (g * mu / n) * w[:, None] * (ns > theta).to(user.dtype)
+            grad_p = d_ps[:, None] * user
+            if shared:
+                grad_u = d_ps[:, None] * pos + d_ns @ negs
+                grad_n = d_ns.T @ user
+            else:
+                grad_u = d_ps[:, None] * pos + torch.einsum("bn,bnk->bk", d_ns,
+                                                            negs)
+                grad_n = d_ns[:, :, None] * user[:, None, :]
+            return (grad_u, grad_p, grad_n, g * _ccl_rows(ps, ns, mu, theta),
+                    None, None, None)
+        u_hat, p_hat, negs, inv_u, inv_p, inv_n, ps, ns, w = ctx.saved_tensors
+        n = ns.shape[-1]
+        d_ps = -g * w
+        d_ns = (g * mu / n) * w[:, None] * (ns > theta).to(u_hat.dtype)
+        wn = d_ns * inv_n
+        coeff = d_ps * ps + torch.sum(d_ns * ns, dim=-1)
+        grad_u = inv_u[:, None] * (d_ps[:, None] * p_hat - coeff[:, None] * u_hat)
+        if shared:
+            grad_u = grad_u + inv_u[:, None] * (wn @ negs)
+            grad_n = (wn.T @ u_hat
+                      - (torch.sum(wn * ns, dim=0) * inv_n)[:, None] * negs)
+        else:
+            grad_u = grad_u + torch.einsum("bn,bnk->bk", wn * inv_u[:, None],
+                                           negs)
+            grad_n = (wn[:, :, None] * u_hat[:, None, :]
+                      - (wn * ns * inv_n)[:, :, None] * negs)
+        grad_p = (d_ps * inv_p)[:, None] * (u_hat - ps[:, None] * p_hat)
+        return (grad_u, grad_p, grad_n, g * _ccl_rows(ps, ns, mu, theta),
+                None, None, None)
+
+
+def ccl_loss_fused_w(user, pos, negs, w, mu: float = 1.0, theta: float = 0.0,
+                     similarity: str = "cosine"):
+    """Weighted CCL ``sum_t w_t * L_t``; ``negs`` (B, n, K) or shared
+    (n, K); ``w`` (B,) already normalized (:func:`loss_weights`).  With
+    ``w = 1/B`` it equals :func:`ccl_loss_fused`."""
+    return CCLFusedW.apply(user, pos, negs, w, float(mu), float(theta),
+                           similarity)
+
+
 def ccl_loss_autodiff(user, pos, negs, mu: float = 1.0, theta: float = 0.0,
-                      similarity: str = "cosine"):
+                      similarity: str = "cosine", mask=None):
     """Same math through plain autograd (no residual reuse): the baseline and
-    the oracle."""
-    ps, ns = _sims(pair_stats(user, pos, negs), similarity)
-    return _ccl_rows(ps, ns, mu, theta).mean()
+    the oracle, for both negative layouts and an optional per-row mask."""
+    ps, ns = _sims(layout_stats(user, pos, negs), similarity)
+    if mask is None and negs.dim() == 3:
+        return _ccl_rows(ps, ns, mu, theta).mean()
+    w = loss_weights(mask, user.shape[0], user.dtype, user.device)
+    return torch.sum(_ccl_rows(ps, ns, mu, theta) * w)

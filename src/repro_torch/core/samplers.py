@@ -9,11 +9,13 @@ Every draw takes an explicit ``torch.Generator`` on the device it draws on.
 The tile's refresh counter is a host ``int``: the refresh schedule is known
 to the host, so deciding it costs no device sync.  The item table may be
 fp32 or int8 (``optim/quantization.py``); the tile copy is always fp32.  The
-sharded and id-only tiles wait for later slices.
+id-only tile (``tile_emb=None``, :func:`id_tile_init`) is the LM vocab tile:
+only the sampling space is tiled, and its rows are gathered through the live
+table so gradients reach it.  The sharded tile waits for a later slice.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -37,11 +39,11 @@ def sample_unique(gen: torch.Generator, num_items: int, n: int) -> torch.Tensor:
 
 class TileState(NamedTuple):
     """The resident tile: ``tile_ids`` (N1,) int64 distinct sorted ids,
-    ``tile_emb`` (N1, K) their rows, ``step`` iterations since the last
-    refresh (host int)."""
+    ``tile_emb`` (N1, K) their rows or None (id-only), ``step`` iterations
+    since the last refresh (host int)."""
 
     tile_ids: torch.Tensor
-    tile_emb: torch.Tensor
+    tile_emb: Optional[torch.Tensor]
     step: int
 
 
@@ -52,14 +54,23 @@ def tile_init(gen: torch.Generator, item_table, tile_size: int) -> TileState:
     return TileState(ids, qz.gather_rows(item_table, ids), 0)
 
 
+def id_tile_init(gen: torch.Generator, num_items: int,
+                 tile_size: int) -> TileState:
+    """Id-only tile (no embedding copy): the LM head's vocab tile."""
+    return TileState(sample_unique(gen, num_items, tile_size), None, 0)
+
+
 def tile_refresh(state: TileState, gen: torch.Generator, item_table,
                  refresh_interval: int) -> TileState:
     """Redraw the tile from the live table every ``refresh_interval`` steps,
-    else count the step."""
+    else count the step.  An id-only tile redraws its ids only (the table
+    gives just the size of the sampling space)."""
     if state.step >= refresh_interval - 1:
         ids = sample_unique(gen, qz.num_rows(item_table),
                             state.tile_ids.shape[0])
-        return TileState(ids, qz.gather_rows(item_table, ids), 0)
+        emb = (None if state.tile_emb is None
+               else qz.gather_rows(item_table, ids))
+        return TileState(ids, emb, 0)
     return TileState(state.tile_ids, state.tile_emb, state.step + 1)
 
 

@@ -1,4 +1,4 @@
-"""Fused similarity computation (paper §4.3), per-example negative layout.
+"""Fused similarity computation (paper §4.3), for both negative layouts.
 
 One pass over the embeddings yields every dot and norm the cosine CCL loss
 and its analytic backward need,
@@ -7,7 +7,9 @@ and its analytic backward need,
 
 without a concatenated or normalized copy.  This is the plain PyTorch form;
 ``repro_torch.kernels.ccl_similarity`` implements the same contract as a CUDA
-kernel.  The step-shared (n, K) layout of the LM head waits for the LM slice.
+kernel.  :func:`shared_pair_stats` is the same pass for the step-shared
+``(n, K)`` negatives of the LM head, and :func:`layout_stats` dispatches on
+the negatives' rank.
 """
 from __future__ import annotations
 
@@ -33,16 +35,31 @@ class SimilarityResiduals(NamedTuple):
 def pair_stats(user, pos, negs) -> SimilarityResiduals:
     """user (B, K), pos (B, K), negs (B, n, K) -> every dot/norm for the
     cosine similarities, in one fused pass."""
-    if negs.dim() != 3:
-        raise NotImplementedError(
-            "step-shared (n, K) negatives belong to the LM slice of the port "
-            "(ROADMAP.md, queue A, item 7)")
     return SimilarityResiduals(
         uu=torch.sum(user * user, dim=-1),
         pp=torch.sum(pos * pos, dim=-1),
         up=torch.sum(user * pos, dim=-1),
         nn=torch.sum(negs * negs, dim=-1),
         un=torch.einsum("bk,bnk->bn", user, negs))
+
+
+def shared_pair_stats(user, pos, negs) -> SimilarityResiduals:
+    """The same pass for step-shared negatives: user (T, K), pos (T, K),
+    negs (n, K) shared by every row -> ``nn`` (n,) and ``un`` (T, n); the
+    cosine formulas broadcast ``inv_n`` over rows."""
+    return SimilarityResiduals(
+        uu=torch.sum(user * user, dim=-1),
+        pp=torch.sum(pos * pos, dim=-1),
+        up=torch.sum(user * pos, dim=-1),
+        nn=torch.sum(negs * negs, dim=-1),
+        un=user @ negs.T)
+
+
+def layout_stats(user, pos, negs) -> SimilarityResiduals:
+    """Dispatch on the negatives' rank: (B, n, K) -> :func:`pair_stats`,
+    (n, K) -> :func:`shared_pair_stats`."""
+    return pair_stats(user, pos, negs) if negs.dim() == 3 \
+        else shared_pair_stats(user, pos, negs)
 
 
 def cosine_from_stats_with_norms(res: SimilarityResiduals):

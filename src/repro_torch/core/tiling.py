@@ -5,7 +5,9 @@ CUDA's ``index_add_``, ``scatter_add_`` and ``index_put_(accumulate=True)``
 add duplicate rows with atomics in a run-to-run order.  :func:`segment_sum`
 instead stably sorts the targets and sums each run sequentially
 (``segment_reduce``), so the same inputs give the same bits on every run and
-every device.  Algorithm 1 (``tune_tiling``) and its hardware model wait for
+every device.  :func:`gather_rows` is a row gather whose backward is that
+segment sum, for tables that take gradients (the LM's embedding and output
+tables).  Algorithm 1 (``tune_tiling``) and its hardware model wait for
 a later slice.
 """
 from __future__ import annotations
@@ -67,3 +69,29 @@ def tile_write_through(tile_ids, tile_emb, ids, grads, lr: float):
     hit = sorted_ids[slot_c] == ids
     target = torch.where(hit, order[slot_c], torch.full_like(slot_c, n1))
     return tile_emb + segment_sum(target, (-lr * g).to(tile_emb.dtype), n1)
+
+
+class GatherRows(torch.autograd.Function):
+    """``table[ids]`` whose backward scatters the rows' gradients into a
+    dense (R, K) table gradient with :func:`segment_sum` — each row's
+    duplicates summed in id order, no atomics — where PyTorch's own
+    indexing backward (``index_put_`` with accumulate) adds them with
+    atomics on the card."""
+
+    @staticmethod
+    def forward(ctx, table, ids):
+        ctx.save_for_backward(ids)
+        ctx.rows = table.shape[0]
+        return table[ids]
+
+    @staticmethod
+    def backward(ctx, grad):
+        (ids,) = ctx.saved_tensors
+        g = grad.reshape(-1, grad.shape[-1])
+        return segment_sum(ids.reshape(-1), g, ctx.rows), None
+
+
+def gather_rows(table, ids):
+    """Rows ``table[ids]`` (ids of any shape) with a deterministic backward
+    (:class:`GatherRows`)."""
+    return GatherRows.apply(table, ids)

@@ -1,5 +1,5 @@
-"""Synthetic implicit-feedback CF data (the CF half of
-``src/repro/data/pipeline.py``).
+"""Synthetic implicit-feedback CF data and synthetic LM batches (the CF half
+and ``lm_batch`` of ``src/repro/data/pipeline.py``).
 
 Every batch is a pure function of (seed, step): :func:`cf_batch_device`
 draws from a ``torch.Generator`` seeded with ``fold_in(fold_in(seed, step),
@@ -112,3 +112,19 @@ def cf_batch_device(ds: DeviceCFDataset, seed: int, step: int,
         hist_ids = torch.where(h >= 0, h, 0)
     return Batch(user_ids=users, pos_ids=pos, hist_ids=hist_ids,
                  hist_mask=hist_mask)
+
+
+def lm_batch(step: int, batch_size: int, seq_len: int, vocab: int,
+             seed: int = 0, device="cpu") -> dict:
+    """Synthetic LM batch ``{"tokens": (B, S) int64}`` on ``device``, pure
+    in (seed, step): uniform tokens of which half the positions (a fair coin
+    each) copy their predecessor, the reference's Markov structure, so the
+    loss has signal to learn.  Drawn from ``fold_in(fold_in(seed, step),
+    BATCH_STREAM)`` on the device; the modality extras (audio frames, VLM
+    patches) wait for their families."""
+    gen = generator(fold_in(fold_in(seed, step), BATCH_STREAM), device)
+    base = torch.randint(0, vocab, (batch_size, seq_len), generator=gen,
+                         device=device)
+    copy = torch.rand((batch_size, seq_len), generator=gen, device=device) < 0.5
+    shifted = torch.cat([base[:, :1], base[:, :-1]], dim=1)
+    return {"tokens": torch.where(copy, shifted, base)}

@@ -1,5 +1,6 @@
-"""Public wrappers around the CUDA kernels: the kernel CCL loss as an
-autograd Function, and the sparse row updates.
+"""Public wrappers around the CUDA kernels: the kernel CCL losses as
+autograd Functions (per-example and step-shared negatives), the sparse row
+updates, and the attention dispatcher.
 
 Every wrapper below dispatches on the tensors it is given: CPU tensors run
 the kernels' plain versions, CUDA tensors launch the kernels (or raise).
@@ -10,11 +11,18 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.ccl_similarity import ccl_bwd, ccl_stats
+from repro_torch.kernels import ref
+from repro_torch.kernels.ccl_similarity import (
+    ccl_bwd,
+    ccl_bwd_shared,
+    ccl_stats,
+    ccl_stats_shared,
+)
 from repro_torch.kernels.embedding_update import (
     gather_fma_rows_,
     gather_fma_rows_plain_,
 )
+from repro_torch.kernels.flash_attention import flash_attention
 
 EPS = 1e-12
 
@@ -59,6 +67,51 @@ def make_ccl_loss_kernel(mu: float = 1.0, theta: float = 0.0):
     return fn
 
 
+class CCLSharedKernelLoss(torch.autograd.Function):
+    """Weighted CCL over T rows against n step-shared negatives: the shared
+    stats kernel forward and the shared backward kernel
+    (``src/repro/kernels/ops.py::make_ccl_loss_shared_pallas``).  The loss
+    is ``sum_t w_t * L_t``; the kernels handle any T, so nothing is padded."""
+
+    @staticmethod
+    def forward(ctx, user, pos, negs, w, mu: float, theta: float):
+        t, n = user.shape[0], negs.shape[0]
+        uu, pp, up, nn, un = ccl_stats_shared(user, pos, negs)
+        inv_u = torch.rsqrt(uu + EPS)
+        pos_sim = (up * inv_u * torch.rsqrt(pp + EPS))[:, 0]
+        neg_sim = un * inv_u * torch.rsqrt(nn + EPS)            # (T, n)
+        rows = ((1.0 - pos_sim) + (mu / n)
+                * torch.clamp_min(neg_sim - theta, 0.0).sum(-1))
+        loss = torch.sum(rows * w.reshape(t))
+        w2 = w.reshape(t, 1).float()
+        ctx.save_for_backward(user, pos, negs, uu, pp, up, nn, un, w2, rows)
+        ctx.mu, ctx.theta, ctx.w_shape = mu, theta, w.shape
+        return loss.to(user.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        user, pos, negs, uu, pp, up, nn, un, w2, rows = ctx.saved_tensors
+        du, dp, dn = ccl_bwd_shared(user, pos, negs, uu, pp, up, nn, un, w2,
+                                    g.float().reshape(1), mu=ctx.mu,
+                                    theta=ctx.theta)
+        dw = (g * rows).to(user.dtype).reshape(ctx.w_shape)
+        return du, dp, dn.to(negs.dtype), dw, None, None
+
+
+def make_ccl_loss_shared_kernel(mu: float = 1.0, theta: float = 0.0):
+    """``fn(user (T, K), pos (T, K), negs (n, K), w (T,)) -> scalar``: the
+    weighted CCL of ``core.losses.ccl_loss_fused_w`` for step-shared
+    negatives, with the shared stats kernel forward and the shared backward
+    kernel.  ``w`` must already be normalized (``core.losses.loss_weights``);
+    gradients reach all four inputs, ``w``'s as ``g * rows``."""
+    mu, theta = float(mu), float(theta)
+
+    def fn(user, pos, negs, w):
+        return CCLSharedKernelLoss.apply(user, pos, negs, w, mu, theta)
+
+    return fn
+
+
 def sparse_row_update(table, ids, grads, lr: float, *,
                       use_kernel: bool = True):
     """In place ``table[ids] -= lr * grads`` with scatter-add semantics.
@@ -84,3 +137,14 @@ def fused_rows_update(table, groups, lr: float, *, use_kernel: bool = True):
     ids = torch.cat([i.reshape(-1) for i, _ in groups])
     grads = torch.cat([g.reshape(-1, g.shape[-1]) for _, g in groups])
     return sparse_row_update(table, ids, grads, lr, use_kernel=use_kernel)
+
+
+def attention(q, k, v, *, causal: bool = True, use_kernel: bool = True,
+              scale=None):
+    """Attention through the flash kernel (its plain version on CPU
+    tensors), or ``ref.attention_ref`` when ``use_kernel=False`` — the
+    dispatcher of ``src/repro/kernels/ops.py::attention``.  q (B, Hq, S, D),
+    k/v (B, Hkv, S, D)."""
+    if not use_kernel:
+        return ref.attention_ref(q, k, v, causal=causal, scale=scale)
+    return flash_attention(q, k, v, causal=causal, scale=scale)

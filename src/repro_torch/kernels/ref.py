@@ -6,6 +6,8 @@ kernels' order of operations.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 from repro_torch.core.losses import ccl_loss_autodiff
@@ -45,3 +47,23 @@ def rows_update_ref(table, ids, grads, lr):
     ids = ids.reshape(-1)
     grads = grads.reshape(-1, grads.shape[-1])
     return table.index_add(0, ids, (-lr * grads).to(table.dtype))
+
+
+def attention_ref(q, k, v, *, causal=True, scale=None):
+    """Oracle for the flash kernel: full-materialization softmax attention.
+
+    q (B, Hq, S, D), k/v (B, Hkv, S, D) with Hq a multiple of Hkv (GQA, each
+    KV head broadcast to its query heads); fp32 logits, masked to -inf."""
+    b, hq, s, d = q.shape
+    hkv = k.shape[1]
+    group = hq // hkv
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    kr = k[:, :, None].expand(b, hkv, group, s, d).reshape(b, hq, s, d)
+    vr = v[:, :, None].expand(b, hkv, group, s, d).reshape(b, hq, s, d)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), kr.float()) * scale
+    if causal:
+        mask = torch.tril(torch.ones((s, s), dtype=torch.bool, device=q.device))
+        logits = logits.masked_fill(~mask, float("-inf"))
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhqk,bhkd->bhqd", probs, vr.float())
+    return out.to(q.dtype)

@@ -120,12 +120,14 @@ def dequantize_table(table: Table) -> torch.Tensor:
 
 def gather_rows(table: Table, ids: torch.Tensor, *,
                 use_kernel: bool = False) -> torch.Tensor:
-    """Row gather of either layout: ``table[ids]`` for a plain tensor,
-    dequantized rows for a quantized one.  ``use_kernel=True`` sends a
+    """Row gather of either layout: ``table[ids]`` for a plain tensor (with
+    the deterministic backward of ``tiling.gather_rows``, so gradients that
+    reach a table add in a fixed order), dequantized rows for a quantized
+    one.  ``use_kernel=True`` sends a
     quantized gather through the gather-dequant kernel (its plain version on
     CPU tensors); ``ids`` may have any shape."""
     if not isinstance(table, QuantizedTable):
-        return table[ids]
+        return tiling.gather_rows(table, ids)
     if use_kernel:
         rows = gather_dequant_rows(table.q, table.scale, ids.reshape(-1))
         return rows.reshape(tuple(ids.shape) + (table.q.shape[1],))

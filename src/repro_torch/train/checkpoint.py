@@ -10,8 +10,8 @@ Layout::
         <leaf>.npy        one file per leaf, named by its path
                           (``params/user_table/q`` -> ``params__user_table__q.npy``)
 
-- **Leaf names** are the reference's: the NamedTuple field path joined by
-  ``/``, with ``None`` fields absent (:func:`named_leaves`, which
+- **Leaf names** are the reference's: the NamedTuple field and dict key
+  path joined by ``/``, with ``None`` fields absent (:func:`named_leaves`, which
   ``convert.py`` uses too).  int64 tensors (ids) are written as int32 and
   host-int counters as 0-d int32, as the reference keeps them.
 - **Atomic**: written to ``step_<N>.tmp`` and renamed; ``save`` first sweeps
@@ -45,14 +45,18 @@ def _is_struct(tree) -> bool:
 
 
 def map_leaves(tree: Any, fn: Callable[[str, Any], Any], prefix: str = ""):
-    """Rebuild ``tree`` (nested NamedTuples) with each non-None leaf replaced
-    by ``fn(name, leaf)``, ``name`` its field path joined by ``/``."""
+    """Rebuild ``tree`` (nested NamedTuples and dicts) with each non-None
+    leaf replaced by ``fn(name, leaf)``, ``name`` its field path (dict keys
+    taken in sorted order, as ``jax.tree`` flattens them) joined by ``/``."""
     if tree is None:
         return None
     if _is_struct(tree):
         return type(tree)(*(map_leaves(getattr(tree, f), fn,
                                        f"{prefix}/{f}" if prefix else f)
                             for f in tree._fields))
+    if isinstance(tree, dict):
+        return {k: map_leaves(tree[k], fn, f"{prefix}/{k}" if prefix else k)
+                for k in sorted(tree)}
     return fn(prefix or "root", tree)
 
 

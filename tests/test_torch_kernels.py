@@ -18,7 +18,14 @@ from hypothesis import given, settings
 from hypothesis import strategies as st
 
 from repro_torch.core.losses import ccl_loss_fused
-from repro_torch.kernels import _build, ccl_similarity, embedding_update, ops, ref
+from repro_torch.kernels import (
+    _build,
+    ccl_similarity,
+    embedding_update,
+    flash_attention,
+    ops,
+    ref,
+)
 
 ATOL = 1e-5
 
@@ -32,8 +39,11 @@ def jx():
     import jax.numpy as jnp
     from repro.kernels import ccl_similarity as jccl
     from repro.kernels import embedding_update as jeu
+    from repro.kernels import flash_attention as jfa
     from repro.kernels import ops as jops
-    return types.SimpleNamespace(jax=jax, jnp=jnp, ccl=jccl, ops=jops, eu=jeu)
+    from repro.kernels import ref as jref
+    return types.SimpleNamespace(jax=jax, jnp=jnp, ccl=jccl, ops=jops, eu=jeu,
+                                 fa=jfa, ref=jref)
 
 
 @pytest.fixture
@@ -256,8 +266,9 @@ def test_gather_dequant_rejects_bad_shapes(shapes):
 def test_build_names_libraries_by_source_hash(tmp_path, monkeypatch):
     """A library is named by its source's content hash, so an edited source
     is rebuilt instead of a stale library being loaded."""
-    assert _build.sources() == ["ccl_bwd", "ccl_stats", "gather_dequant",
-                                "gather_fma"]
+    assert _build.sources() == ["ccl_bwd", "ccl_bwd_shared", "ccl_stats",
+                                "ccl_stats_shared", "flash_attention",
+                                "gather_dequant", "gather_fma"]
     monkeypatch.setattr(_build, "CSRC", tmp_path)
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     (tmp_path / "k.cu").write_text("// v1\n")
@@ -266,6 +277,133 @@ def test_build_names_libraries_by_source_hash(tmp_path, monkeypatch):
     second = _build._target("k")
     assert first != second and first.parent == tmp_path / "build"
     assert _build.sources() == ["k"]
+
+
+# --------------------------------------------------------------------------
+# Step-shared layout (the LM HEAT head) and flash attention.
+# --------------------------------------------------------------------------
+
+def _shared(t, n, k, seed=0):
+    """Hidden-like rows u (unit normal), table-like p and negs (0.1 scale)."""
+    r = np.random.default_rng(seed)
+    return (r.standard_normal((t, k)).astype(np.float32),
+            (0.1 * r.standard_normal((t, k))).astype(np.float32),
+            (0.1 * r.standard_normal((n, k))).astype(np.float32))
+
+
+# (T, n, K, block_b of the reference kernel): T a multiple of the block and
+# not, and T smaller than the block.
+SHARED_SHAPES = [(16, 8, 32, 8), (13, 5, 32, 8), (300, 8, 16, 256),
+                 (40, 3, 30, 16)]
+
+
+@pytest.mark.parametrize("t,n,k,bb", SHARED_SHAPES)
+def test_ccl_stats_shared_matches_pallas(jx, t, n, k, bb):
+    u, p, negs = _shared(t, n, k)
+    tp = -(-t // bb) * bb                       # the reference pads to blocks
+    pad = ((0, tp - t), (0, 0))
+    want = jx.ccl.ccl_stats_shared_pallas(np.pad(u, pad), np.pad(p, pad), negs,
+                                          block_b=bb, interpret=True)
+    ccl_similarity.SHARED_STATS_LAUNCHES.reset()
+    got = ccl_similarity.ccl_stats_shared(*_t(u, p, negs))
+    assert ccl_similarity.SHARED_STATS_LAUNCHES.count("cpu") == 1
+    assert ccl_similarity.SHARED_STATS_LAUNCHES.count() == 0
+    for g, w in zip(got, want):
+        w = np.asarray(w)
+        w = w if w.shape[0] == 1 else w[:t]         # nn is (1, n)
+        assert g.shape == w.shape
+        np.testing.assert_allclose(g.numpy(), w, atol=ATOL, rtol=1e-6)
+
+
+@pytest.mark.parametrize("mu,theta", [(1.0, 0.0), (1.7, 0.1)])
+@pytest.mark.parametrize("t,n,k,bb", SHARED_SHAPES)
+def test_ccl_bwd_shared_matches_pallas(jx, t, n, k, bb, mu, theta):
+    u, p, negs = _shared(t, n, k, seed=1)
+    r = np.random.default_rng(2)
+    w = (r.random((t, 1)) / t).astype(np.float32)
+    w[::3] = 0.0                                   # masked rows
+    tp = -(-t // bb) * bb
+    pad = ((0, tp - t), (0, 0))
+    u_p, p_p, w_p = np.pad(u, pad), np.pad(p, pad), np.pad(w, pad)
+    stats = [np.asarray(s) for s in jx.ccl.ccl_stats_shared_pallas(
+        u_p, p_p, negs, block_b=bb, interpret=True)]
+    g = np.float32(1.3)
+    want = jx.ccl.ccl_bwd_shared_pallas(u_p, p_p, negs, *stats, w_p,
+                                        jx.jnp.asarray(g), mu=mu, theta=theta,
+                                        block_b=bb, interpret=True)
+    cut = [s[:t] if s.shape[0] == tp else s for s in stats]
+    ccl_similarity.SHARED_BWD_LAUNCHES.reset()
+    got = ccl_similarity.ccl_bwd_shared(*_t(u, p, negs, *cut, w),
+                                        torch.tensor([g]), mu=mu, theta=theta)
+    assert ccl_similarity.SHARED_BWD_LAUNCHES.count("cpu") == 1
+    for a, want_a in zip(got, (np.asarray(want[0])[:t], np.asarray(want[1])[:t],
+                               np.asarray(want[2]))):
+        np.testing.assert_allclose(a.numpy(), want_a, atol=ATOL)
+    # Masked rows get exactly zero gradients.
+    assert not got[0][::3].any() and not got[1][::3].any()
+
+
+@pytest.mark.parametrize("mu,theta", [(1.0, 0.0), (1.7, 0.1)])
+@pytest.mark.parametrize("t,n,k", [(16, 5, 32), (37, 8, 16)])
+def test_shared_kernel_loss_matches_pallas_loss(jx, t, n, k, mu, theta):
+    u, p, negs = _shared(t, n, k, seed=3)
+    w = np.full((t,), 1.0 / t, np.float32)
+    w[1] = 0.0
+    fn = jx.ops.make_ccl_loss_shared_pallas(mu=mu, theta=theta, block_b=8,
+                                            interpret=True)
+    want_loss, want_grads = jx.jax.value_and_grad(fn, argnums=(0, 1, 2, 3))(
+        u, p, negs, w)
+    leaves = [x.requires_grad_() for x in _t(u, p, negs, w)]
+    loss = ops.make_ccl_loss_shared_kernel(mu, theta)(*leaves)
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(want_loss), atol=ATOL)
+    for leaf, want_g in zip(leaves, want_grads):
+        assert leaf.grad.shape == tuple(np.shape(want_g))
+        np.testing.assert_allclose(leaf.grad.numpy(), np.asarray(want_g),
+                                   atol=ATOL)
+
+
+def _qkv(b, hq, hkv, s, d, seed=0):
+    r = np.random.default_rng(seed)
+    return (r.standard_normal((b, hq, s, d)).astype(np.float32),
+            r.standard_normal((b, hkv, s, d)).astype(np.float32),
+            r.standard_normal((b, hkv, s, d)).astype(np.float32))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,hq,hkv,s,d", [(2, 4, 2, 32, 16), (1, 3, 1, 16, 8),
+                                          (1, 2, 2, 24, 8)])
+def test_attention_matches_flash_pallas(jx, b, hq, hkv, s, d, causal):
+    q, k, v = _qkv(b, hq, hkv, s, d)
+    want = np.asarray(jx.fa.flash_attention(q, k, v, causal=causal, block_q=8,
+                                            block_k=8, interpret=True))
+    np.testing.assert_allclose(
+        np.asarray(jx.ref.attention_ref(q, k, v, causal=causal)), want,
+        atol=ATOL)
+    flash_attention.FLASH_LAUNCHES.reset()
+    for got in (ops.attention(*_t(q, k, v), causal=causal),
+                ops.attention(*_t(q, k, v), causal=causal, use_kernel=False),
+                ref.attention_ref(*_t(q, k, v), causal=causal)):
+        np.testing.assert_allclose(got.numpy(), want, atol=ATOL)
+    assert flash_attention.FLASH_LAUNCHES.count("cpu") == 1
+    assert flash_attention.FLASH_LAUNCHES.count() == 0
+
+
+def test_shared_and_flash_wrappers_reject_bad_shapes():
+    u, p, negs = _t(*_shared(4, 3, 8))
+    with pytest.raises(ValueError):
+        ccl_similarity.ccl_stats_shared(u, p[:3], negs)
+    with pytest.raises(ValueError):
+        ccl_similarity.ccl_stats_shared(u, p, negs[:, :4])
+    with pytest.raises(ValueError):
+        ccl_similarity.ccl_stats_shared(u.to("meta"), p.to("meta"),
+                                        negs.to("meta"))
+    q, k, v = _t(*_qkv(1, 3, 2, 8, 4))
+    with pytest.raises(ValueError):                # Hq not a multiple of Hkv
+        flash_attention.flash_attention(q, k, v)
+    q, k, v = _t(*_qkv(1, 2, 1, 8, 4))
+    with pytest.raises(ValueError):
+        flash_attention.flash_attention(q, k[:, :, :4], v[:, :, :4])
 
 
 # --------------------------------------------------------------------------
@@ -327,3 +465,50 @@ def test_cuda_gather_dequant_matches_plain(cuda, rows, b, k):
     torch.cuda.synchronize()
     assert embedding_update.GATHER_DEQUANT_LAUNCHES.count() == 1
     assert torch.equal(got, embedding_update.gather_dequant_rows_plain(q, scale, ids))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,n,k", [(13, 5, 32), (300, 8, 30), (1000, 64, 64),
+                                   (8184, 64, 960)])
+def test_cuda_shared_ccl_kernels_match_plain(cuda, t, n, k):
+    u, p, negs = _t(*_shared(t, n, k, seed=7), device=cuda)
+    w = torch.full((t, 1), 1.0 / t, device=cuda)
+    w[::5] = 0.0
+    ccl_similarity.SHARED_STATS_LAUNCHES.reset()
+    ccl_similarity.SHARED_BWD_LAUNCHES.reset()
+    stats = ccl_similarity.ccl_stats_shared(u, p, negs)
+    again = ccl_similarity.ccl_stats_shared(u, p, negs)
+    for a, b_, want in zip(stats, again,
+                           ccl_similarity.ccl_stats_shared_plain(u, p, negs)):
+        assert torch.equal(a, b_)                       # same bits every run
+        torch.testing.assert_close(a, want, atol=1e-6, rtol=1e-5)
+    g = torch.tensor([float(t)], device=cuda)           # per-row weight x g = 1
+    args = (u, p, negs, *stats, w, g)
+    got = ccl_similarity.ccl_bwd_shared(*args, mu=1.3, theta=0.1)
+    again = ccl_similarity.ccl_bwd_shared(*args, mu=1.3, theta=0.1)
+    want = ccl_similarity.ccl_bwd_shared_plain(*args, mu=1.3, theta=0.1)
+    for a, b_, want_a in zip(got, again, want):
+        assert torch.equal(a, b_)
+        torch.testing.assert_close(a, want_a, atol=1e-6, rtol=1e-5)
+    assert not got[0][::5].any() and not got[1][::5].any()
+    torch.cuda.synchronize()
+    assert ccl_similarity.SHARED_STATS_LAUNCHES.count() == 2
+    assert ccl_similarity.SHARED_BWD_LAUNCHES.count() == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,hq,hkv,s,d", [(1, 2, 1, 64, 32), (2, 6, 2, 128, 64),
+                                          (1, 4, 4, 192, 128),
+                                          (8, 15, 5, 1024, 64)])
+def test_cuda_flash_attention_matches_plain(cuda, b, hq, hkv, s, d, causal):
+    q, k, v = _t(*_qkv(b, hq, hkv, s, d, seed=8), device=cuda)
+    flash_attention.FLASH_LAUNCHES.reset()
+    got = ops.attention(q, k, v, causal=causal)
+    want = ref.attention_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.FLASH_LAUNCHES.count() == 1
+    torch.testing.assert_close(got, want, atol=1e-6, rtol=1e-5)
+    with pytest.raises(ValueError):                     # S % 64 != 0
+        flash_attention.flash_attention(q[:, :, :40], k[:, :, :40],
+                                        v[:, :, :40])
