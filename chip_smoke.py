@@ -19,7 +19,8 @@ smollm-360m's attention shape.  Phases, one line each:
      into the 400,000-row table): max abs error against the stated
      tolerance, and the median of 30 CUDA-event timings of the kernel, the
      plain version and, where one PyTorch call computes the same function,
-     that call (``library_ms``), each with the L2 cache flushed first; the
+     that call (``library_ms``), each with the L2 cache flushed first, and
+     the kernel's share of its bound (bound over kernel time); the
      gather-dequant kernel on a synthetic 400,000-row int8 table at 1,024 and
      at 16,384 ids, which must agree with its plain version bit for bit;
   4. the loss through the kernel autograd Function against the plain
@@ -115,6 +116,11 @@ def bound(nbytes: float, flops: float):
     """Least time (ms) the card could take, and what bounds it."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def bound_share(kd: dict) -> str:
+    """A kernels-line entry's bound over its measured time, in words."""
+    return f"{100 * kd['bound_ms'] / kd['ms']:.1f}% of its bound"
 
 
 def max_err(got, want) -> float:
@@ -236,7 +242,7 @@ def dequant_summary(kd: dict) -> str:
     return (f"{kd['n_unique']} unique, largest id {kd['max_id']}; max abs err "
             f"{kd['max_abs_err']:.1e} (must be 0); {kd['ms']:.4f} ms kernel, "
             f"{kd['plain_ms']:.4f} ms plain, bound {kd['bound_ms']:.4f} ms "
-            f"({kd['bound_by']}), library {kd['library_ms']:.4f} ms "
+            f"({kd['bound_by']}; {bound_share(kd)}), library {kd['library_ms']:.4f} ms "
             f"(q.index_select alone: the int8 gather without the dequant, a "
             f"partial yardstick)")
 
@@ -414,8 +420,8 @@ def lm_phases(dev, card: str, flush, counters) -> list:
         print(f"[11 kernel] {kd['name']} on the head's inputs (T={t_rows}, "
               f"K={k}, n={n}): max abs err {kd['max_abs_err']:.3e} (tol {ATOL:g} "
               f"+ {RTOL:g}*|plain|); {kd['ms']:.4f} ms kernel, {kd['plain_ms']:.4f} "
-              f"ms plain, bound {kd['bound_ms']:.4f} ms ({kd['bound_by']}), "
-              f"library {lib} | {card}", flush=True)
+              f"ms plain, bound {kd['bound_ms']:.4f} ms ({kd['bound_by']}; "
+              f"{bound_share(kd)}), library {lib} | {card}", flush=True)
     print(f"[11 loss] shared kernel loss on the card {got[0].item():.6f} vs its "
           f"plain versions on the CPU {want_lg[0].item():.6f}; loss, "
           f"T*gradients of u, p, negs and the gradient of w: max abs err "
@@ -453,8 +459,8 @@ def lm_phases(dev, card: str, flush, counters) -> list:
               f"(B={LM_B}, Hq={hq}, Hkv={hkv}, S={LM_S}, D={hd}, unit-normal "
               f"q, k, v): max abs err {err:.3e} (tol {ATOL:g} + {RTOL:g}*|plain|); "
               f"{kd['ms']:.4f} ms kernel, {kd['plain_ms']:.4f} ms plain, bound "
-              f"{kd['bound_ms']:.4f} ms ({kd['bound_by']}), library "
-              f"{kd['library_ms']:.4f} ms (scaled_dot_product_attention, fp32, "
+              f"{kd['bound_ms']:.4f} ms ({kd['bound_by']}; {bound_share(kd)}), "
+              f"library {kd['library_ms']:.4f} ms (scaled_dot_product_attention, fp32, "
               f"KV repeated) | {card}", flush=True)
     del q, kk, vv, kr, vr
 
@@ -636,7 +642,8 @@ def main() -> int:
         print(f"[3 kernel] {kd['name']}: max abs err {kd['max_abs_err']:.3e} "
               f"(tol {ATOL:g} + {RTOL:g}*|plain|); {kd['ms']:.4f} ms kernel, "
               f"{kd['plain_ms']:.4f} ms plain, bound {kd['bound_ms']:.4f} ms "
-              f"({kd['bound_by']}), library {lib} | {card}", flush=True)
+              f"({kd['bound_by']}; {bound_share(kd)}), library {lib} | {card}",
+              flush=True)
 
     q8 = torch.randint(-127, 128, (ROWS, K), generator=gen, device=dev,
                        dtype=torch.int8)

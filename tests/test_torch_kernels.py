@@ -291,6 +291,35 @@ def _shared(t, n, k, seed=0):
             (0.1 * r.standard_normal((n, k))).astype(np.float32))
 
 
+def _near_orthogonal(t, n, k, seed=0):
+    """:func:`_shared`'s inputs with each row of u projected, in fp64, onto
+    the orthogonal complement of the negatives before it is rounded to fp32:
+    every u.n_j is then of order 1e-7 while its partial sums over K are of
+    order 1."""
+    u, p, negs = _shared(t, n, k, seed)
+    basis, _ = np.linalg.qr(negs.astype(np.float64).T)          # (K, n)
+    u64 = u.astype(np.float64)
+    return (u64 - (u64 @ basis) @ basis.T).astype(np.float32), p, negs
+
+
+def test_near_orthogonal_case_needs_fp64_sums():
+    """The card case "orthogonal" of test_cuda_shared_ccl_kernels_match_plain
+    guards the fp64 contract: on its inputs a sequential fp32 sum over K
+    (each product and add rounded to fp32, as a SIMT loop would) breaks the
+    kernel tolerance 1e-6 + 1e-5*|exact|, and the plain version (fp64 sums)
+    meets it."""
+    u, _, negs = _near_orthogonal(256, 64, 960, seed=7)
+    exact = u.astype(np.float64) @ negs.astype(np.float64).T
+    tol = 1e-6 + 1e-5 * np.abs(exact)
+    assert np.abs(exact).max() < 1e-5                    # nearly orthogonal
+    acc = np.zeros(exact.shape, np.float32)
+    for kk in range(u.shape[1]):
+        acc += u[:, kk:kk + 1] * negs[None, :, kk]
+    assert (np.abs(acc - exact) > tol).any()
+    un = ccl_similarity.ccl_stats_shared_plain(*_t(u, u, negs))[4]
+    assert (np.abs(un.numpy() - exact) <= tol).all()
+
+
 # (T, n, K, block_b of the reference kernel): T a multiple of the block and
 # not, and T smaller than the block.
 SHARED_SHAPES = [(16, 8, 32, 8), (13, 5, 32, 8), (300, 8, 16, 256),
@@ -430,13 +459,41 @@ def test_cuda_ccl_kernels_match_plain(cuda, b, n, k):
     assert ccl_similarity.BWD_LAUNCHES.count() == 1
 
 
+def _row_update_ids(r, rows, b, case):
+    """The ids of a row-update case: ``"dup"`` draws from the first
+    ``min(rows, b // 2)`` rows (duplicates); ``"run"`` also gives row 7 a
+    run of 100 equal ids (longer than a warp); ``"last"`` draws from the
+    table's last 64 rows."""
+    if case == "last":
+        return rows - 1 - r.integers(0, 64, b)
+    ids = r.integers(0, min(rows, b // 2), b)
+    if case == "run":
+        ids[r.permutation(b)[:100]] = 7
+    return ids
+
+
+# (rows, B, K, ids): the existing cases; a run of more than 32 equal ids;
+# K % 4 != 0 (the scalar path) and K = 256 (two float4 per lane); a table of
+# more than 2^31 bytes (4,195,328 x 128 fp32, 2.15 GB) updated at its last
+# rows, so 64-bit row offsets are needed.
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows,b,k", [(50, 40, 8), (400_000, 2048, 128)])
-def test_cuda_gather_fma_matches_plain_and_repeats(cuda, rows, b, k):
+@pytest.mark.parametrize("rows,b,k,case", [(50, 40, 8, "dup"),
+                                           (400_000, 2048, 128, "dup"),
+                                           (1000, 300, 128, "run"),
+                                           (5000, 512, 100, "run"),
+                                           (5000, 512, 256, "run"),
+                                           (2 ** 31 // 512 + 1024, 2048, 128,
+                                            "last")])
+def test_cuda_gather_fma_matches_plain_and_repeats(cuda, rows, b, k, case):
     r = np.random.default_rng(6)
-    table = torch.as_tensor(r.standard_normal((rows, k)), dtype=torch.float32,
-                            device=cuda)
-    ids = torch.as_tensor(r.integers(0, min(rows, b // 2), b), device=cuda)
+    if rows * k * 4 > 2 ** 31:              # 537M values: drawn on the card
+        gen = torch.Generator(device=cuda)
+        gen.manual_seed(6)
+        table = torch.randn(rows, k, generator=gen, device=cuda)
+    else:
+        table = torch.as_tensor(r.standard_normal((rows, k)),
+                                dtype=torch.float32, device=cuda)
+    ids = torch.as_tensor(_row_update_ids(r, rows, b, case), device=cuda)
     grads = torch.as_tensor(r.standard_normal((b, k)), dtype=torch.float32,
                             device=cuda)
     embedding_update.reset_launch_count()
@@ -467,11 +524,21 @@ def test_cuda_gather_dequant_matches_plain(cuda, rows, b, k):
     assert torch.equal(got, embedding_update.gather_dequant_rows_plain(q, scale, ids))
 
 
+# (T, n, K, rows): the existing shapes; n > 64 (two negative blocks, the
+# second ragged); a ragged K (4-byte copies); and the head's shape with u's
+# rows made nearly orthogonal to the negatives, where only an fp64 sum meets
+# the tolerance (test_near_orthogonal_case_needs_fp64_sums).
 @pytest.mark.cuda
-@pytest.mark.parametrize("t,n,k", [(13, 5, 32), (300, 8, 30), (1000, 64, 64),
-                                   (8184, 64, 960)])
-def test_cuda_shared_ccl_kernels_match_plain(cuda, t, n, k):
-    u, p, negs = _t(*_shared(t, n, k, seed=7), device=cuda)
+@pytest.mark.parametrize("t,n,k,rows", [(13, 5, 32, "normal"),
+                                        (300, 8, 30, "normal"),
+                                        (1000, 64, 64, "normal"),
+                                        (8184, 64, 960, "normal"),
+                                        (1000, 130, 96, "normal"),
+                                        (8184, 64, 962, "normal"),
+                                        (8184, 64, 960, "orthogonal")])
+def test_cuda_shared_ccl_kernels_match_plain(cuda, t, n, k, rows):
+    make = _near_orthogonal if rows == "orthogonal" else _shared
+    u, p, negs = _t(*make(t, n, k, seed=7), device=cuda)
     w = torch.full((t, 1), 1.0 / t, device=cuda)
     w[::5] = 0.0
     ccl_similarity.SHARED_STATS_LAUNCHES.reset()
