@@ -31,7 +31,8 @@ smollm-360m's attention shape.  Phases, one line each:
   6. determinism: two runs of 2 steps (with a tile refresh) from one state,
      compared bit for bit;
   7. a torch.profiler window of the main path: kernel launches and device
-     busy time per step, and the kernels that take the most device time;
+     busy time per step, ``segment_reduce``'s device time per step, and the
+     kernels that take the most device time;
   8. ``AMAZON`` with int8 tables on the kernel backend at batch 1,024 in
      windows of 16, on the CLI's dataset shape (4,096 users): finite losses,
      the launches per step (gather-dequant 3, stats 1, backward 1,
@@ -40,7 +41,8 @@ smollm-360m's attention shape.  Phases, one line each:
      gather-dequant kernel against its plain version, bit for bit, and
      timed, on the trained tables: at the ids of the run's first batch (the
      user, positive and history gathers; the kernels line reports the
-     history gather) and at ids across each whole table, last rows included;
+     history gather) and at ids across each whole table, last rows included
+     (the profiled window reports ``segment_reduce`` as phase 7 does);
   9. an int8 restart: ``MF_100M_PALLAS`` with int8 tables, a 16-item
      history and a tile refresh every 8 steps, 32 steps uninterrupted and
      again with a checkpoint every 8 steps and a failure injected at step
@@ -59,7 +61,10 @@ smollm-360m's attention shape.  Phases, one line each:
      same Function on the CPU (its plain versions), and
      the flash-attention kernel against its plain version on unit-normal
      q, k, v at smollm-360m's attention shape (B=8, Hq=15, Hkv=5, S=1,024,
-     D=64), causal and not: errors, times and bounds as in phase 3;
+     D=64), causal and not: errors, times and bounds as in phase 3 (beside
+     the flash kernel's fp32 SIMT bound, that of the same work as three TF32
+     products per fp32 product on the tensor cores), and two calls of each
+     of the three kernels compared bit for bit;
  12. the attention path: ``ops.attention`` on the trained model's layer-0
      queries, keys and values, against the model's own chunked attention;
  13. an LM restart: smollm-360m at full width and 4 layers, a vocab-tile
@@ -86,10 +91,13 @@ import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
 
-# H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s and fp32 FLOP/s
-# outside the tensor cores, the rates the kernels' bounds are taken against.
+# H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s, fp32 FLOP/s
+# outside the tensor cores (the fp64 tensor cores' rate is the same 67
+# TFLOP/s) and dense TF32 FLOP/s on the tensor cores: the rates the kernels'
+# bounds are taken against.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+TF32_FLOP_PER_S = 495e12
 B, N_NEG, K, ROWS = 1024, 64, 128, 400_000
 STEPS, WINDOW = 64, 16
 INT8_STEPS, RESTART_STEPS = 64, 32
@@ -112,9 +120,10 @@ def card_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def bound(nbytes: float, flops: float):
-    """Least time (ms) the card could take, and what bounds it."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
+def bound(nbytes: float, flops: float, flop_rate: float = FP32_FLOP_PER_S):
+    """Least time (ms) the card could take for ``nbytes`` of memory traffic
+    and ``flops`` operations at ``flop_rate``, and what bounds it."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flop_rate
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -159,9 +168,10 @@ def time_ms(fn, flush, reps: int = 30) -> float:
 
 def profile_window(executor, state, start: int, length: int,
                    t_unprofiled: float, label: str = "7 profile",
-                   top_n: int = 6) -> str:
+                   top_n: int = 6, watch: str = "") -> str:
     """Profile one more window of a main path: kernel launches and device
-    busy time per step, against the unprofiled window's wall time."""
+    busy time per step, against the unprofiled window's wall time, and the
+    device time per step of the kernels whose names hold ``watch``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -177,9 +187,13 @@ def profile_window(executor, state, start: int, length: int,
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:top_n]
     names = ", ".join(f"{e.key[:48]} {e.self_device_time_total / length:.1f} us"
                       for e in top)
+    watched = ""
+    if watch:
+        us = sum(e.self_device_time_total for e in kern if watch in e.key) / length
+        watched = f"; {watch} {us:.1f} us"
     return (f"[{label}] per step: {launches:.0f} kernel launches, device "
             f"busy {busy_us:.1f} us of {step_us:.1f} us unprofiled "
-            f"({100 * busy_us / step_us:.1f}%); top: {names}")
+            f"({100 * busy_us / step_us:.1f}%){watched}; top: {names}")
 
 
 def eval_loss(state, cfg, dds, batch: int = B) -> float:
@@ -369,6 +383,9 @@ def lm_phases(dev, card: str, flush, counters) -> list:
     n = negs.shape[0]
     stats = ccl_similarity.ccl_stats_shared(u, p, negs)
     err = max_err(stats, ccl_similarity.ccl_stats_shared_plain(u, p, negs))
+    assert all(torch.equal(a, b_) for a, b_ in zip(
+        stats, ccl_similarity.ccl_stats_shared(u, p, negs))), \
+        "ccl_stats_shared: two calls differ"
     b_ms, b_by = bound(4 * (2 * t_rows * k + n * k) + 4 * (3 * t_rows + n + t_rows * n),
                        2 * t_rows * k * (3 + n) + 2 * n * k)
     kernels.append(dict(
@@ -385,8 +402,12 @@ def lm_phases(dev, card: str, flush, counters) -> list:
     w = torch.full((t_rows, 1), 1.0 / t_rows, device=dev)
     g = torch.full((1,), float(t_rows), device=dev)
     bwd_args = (u, p, negs, *stats, w, g)
-    err = max_err(ccl_similarity.ccl_bwd_shared(*bwd_args, mu=1.0, theta=0.0),
-                  ccl_similarity.ccl_bwd_shared_plain(*bwd_args, mu=1.0, theta=0.0))
+    got = ccl_similarity.ccl_bwd_shared(*bwd_args, mu=1.0, theta=0.0)
+    err = max_err(got, ccl_similarity.ccl_bwd_shared_plain(*bwd_args, mu=1.0, theta=0.0))
+    again = ccl_similarity.ccl_bwd_shared(*bwd_args, mu=1.0, theta=0.0)
+    assert all(torch.equal(a, b_) for a, b_ in zip(got, again)), \
+        "ccl_bwd_shared: two calls differ"
+    del got, again
     nbytes = (4 * (2 * t_rows * k + n * k + 4 * t_rows + n + t_rows * n + 1)
               + 4 * (2 * t_rows * k + n * k))
     b_ms, b_by = bound(nbytes, 4 * t_rows * n * k + 10 * t_rows * k + 10 * t_rows * n)
@@ -418,7 +439,8 @@ def lm_phases(dev, card: str, flush, counters) -> list:
     for kd in kernels:
         lib = "none" if kd["library_ms"] is None else "%.4f ms" % kd["library_ms"]
         print(f"[11 kernel] {kd['name']} on the head's inputs (T={t_rows}, "
-              f"K={k}, n={n}): max abs err {kd['max_abs_err']:.3e} (tol {ATOL:g} "
+              f"K={k}, n={n}): same bits on two calls; max abs err "
+              f"{kd['max_abs_err']:.3e} (tol {ATOL:g} "
               f"+ {RTOL:g}*|plain|); {kd['ms']:.4f} ms kernel, {kd['plain_ms']:.4f} "
               f"ms plain, bound {kd['bound_ms']:.4f} ms ({kd['bound_by']}; "
               f"{bound_share(kd)}), library {lib} | {card}", flush=True)
@@ -440,9 +462,17 @@ def lm_phases(dev, card: str, flush, counters) -> list:
     flash_entries = {}
     for causal in (True, False):
         pairs = LM_S * (LM_S + 1) // 2 if causal else LM_S * LM_S
-        b_ms, b_by = bound(nbytes, 4 * LM_B * hq * hd * pairs)
-        err = max_err([flash_attention.flash_attention(q, kk, vv, causal=causal)],
-                      [ref.attention_ref(q, kk, vv, causal=causal)])
+        flops = 4 * LM_B * hq * hd * pairs
+        # The kernel's FMAs run on the fp32 SIMT pipes; beside that bound, the
+        # least time of the same work as three TF32 products per fp32 product
+        # on the tensor cores (csrc/flash_attention.cu says why it does not).
+        b_ms, b_by = bound(nbytes, flops)
+        tf32_ms, _ = bound(nbytes, 3 * flops, TF32_FLOP_PER_S)
+        got = flash_attention.flash_attention(q, kk, vv, causal=causal)
+        err = max_err([got], [ref.attention_ref(q, kk, vv, causal=causal)])
+        assert torch.equal(got, flash_attention.flash_attention(q, kk, vv, causal=causal)), \
+            "flash_attention: two calls differ"
+        del got
         kd = dict(
             name="flash_attention", route="cuda",
             source="src/repro_torch/csrc/flash_attention.cu",
@@ -457,9 +487,11 @@ def lm_phases(dev, card: str, flush, counters) -> list:
         flash_entries[causal] = kd
         print(f"[11 kernel] flash_attention {'causal' if causal else 'full'} "
               f"(B={LM_B}, Hq={hq}, Hkv={hkv}, S={LM_S}, D={hd}, unit-normal "
-              f"q, k, v): max abs err {err:.3e} (tol {ATOL:g} + {RTOL:g}*|plain|); "
-              f"{kd['ms']:.4f} ms kernel, {kd['plain_ms']:.4f} ms plain, bound "
-              f"{kd['bound_ms']:.4f} ms ({kd['bound_by']}; {bound_share(kd)}), "
+              f"q, k, v): same bits on two calls; max abs err {err:.3e} (tol "
+              f"{ATOL:g} + {RTOL:g}*|plain|); {kd['ms']:.4f} ms kernel, "
+              f"{kd['plain_ms']:.4f} ms plain, bound {kd['bound_ms']:.4f} ms "
+              f"({kd['bound_by']}, fp32 on the SIMT pipes; {bound_share(kd)}; "
+              f"{tf32_ms:.4f} ms as 3xTF32 on the tensor cores), "
               f"library {kd['library_ms']:.4f} ms (scaled_dot_product_attention, fp32, "
               f"KV repeated) | {card}", flush=True)
     del q, kk, vv, kr, vr
@@ -752,8 +784,8 @@ def main() -> int:
           "losses, both tables and the tile identical bit for bit", flush=True)
 
     # ---- 7: where a steady step's time goes --------------------------------
-    print(profile_window(executor, state, STEPS + WINDOW, WINDOW, t_steady),
-          flush=True)
+    print(profile_window(executor, state, STEPS + WINDOW, WINDOW, t_steady,
+                         watch="segment_reduce"), flush=True)
     del state, executor, body, base, runs, s0, s1
 
     # ---- 8: AMAZON with int8 tables ----------------------------------------
@@ -807,7 +839,7 @@ def main() -> int:
           f"more {WINDOW}-step window; peak device memory {peak_gb:.2f} GB; "
           f"dataset {t_data8:.1f} s | {card}", flush=True)
     print(profile_window(executor, state, INT8_STEPS + WINDOW, WINDOW, t_steady,
-                         label="8 profile"), flush=True)
+                         label="8 profile", watch="segment_reduce"), flush=True)
 
     # The gather-dequant on the trained tables themselves, at the ids of the
     # run's first batch (user, positive, history: the step's three calls),

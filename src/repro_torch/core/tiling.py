@@ -34,21 +34,25 @@ def run_index(sids):
 def segment_sum(idx, values, num_segments: int):
     """``out[s] = sum(values[i] for i with idx[i] == s)``, summed in the
     order of ``i``: (num_segments, K) from idx (M,) in ``[0, num_segments]``
-    and values (M, K).  Entries with ``idx == num_segments`` are dropped.
-    Sort-based, with no atomics and no host sync."""
+    and values (M, K).  Entries with ``idx == num_segments`` are dropped:
+    they sort last and are not summed at all.  Sort-based, with no atomics
+    and no host sync."""
     order = torch.argsort(idx, stable=True)
     return sorted_segment_sum(idx[order], values[order], num_segments)
 
 
 def sorted_segment_sum(sidx, values, num_segments: int):
     """:func:`segment_sum` of inputs already sorted by ``sidx`` (stably):
-    each run is summed sequentially, in the given order."""
+    each run is summed sequentially, in the given order.  ``segment_reduce``
+    gets the lengths of the ``num_segments`` kept segments only, so the
+    sorted tail with ``sidx == num_segments`` (the dropped entries) is never
+    summed: their lengths add up to fewer rows than ``values`` has, which
+    ``unsafe=True`` accepts."""
     bounds = torch.searchsorted(
-        sidx, torch.arange(num_segments + 2, dtype=sidx.dtype,
+        sidx, torch.arange(num_segments + 1, dtype=sidx.dtype,
                            device=sidx.device))
-    sums = torch.segment_reduce(values, "sum", lengths=bounds.diff(),
+    return torch.segment_reduce(values, "sum", lengths=bounds.diff(),
                                 axis=0, unsafe=True)
-    return sums[:num_segments]
 
 
 def tile_write_through(tile_ids, tile_emb, ids, grads, lr: float):

@@ -39,7 +39,7 @@ _P = ctypes.c_void_p
 _STATS_ARGS = [_P] * 8 + [ctypes.c_int] * 4 + [_P]
 _BWD_ARGS = [_P] * 12 + [ctypes.c_int] * 3 + [ctypes.c_float] * 2 + [_P]
 _SHARED_STATS_ARGS = [_P] * 8 + [ctypes.c_int] * 3 + [_P]
-_SHARED_BWD_ARGS = [_P] * 15 + [ctypes.c_int] * 3 + [ctypes.c_float] * 2 + [_P]
+_SHARED_BWD_ARGS = [_P] * 14 + [ctypes.c_int] * 3 + [ctypes.c_float] * 2 + [_P]
 #: most shared negatives the backward kernel takes (its shared memory).
 SHARED_MAX_N = 192
 EPS = 1e-12
@@ -223,6 +223,16 @@ def ccl_stats_shared(user, pos, negs):
     return uu, pp, up, nn, un
 
 
+def _shared_bwd_scratch_bytes(t: int, n: int, k: int) -> int:
+    """Scratch bytes of the shared backward kernel at (T, n, K) on the
+    current device (``ccl_bwd_shared_scratch_bytes`` in its source)."""
+    fn = getattr(_build.library("ccl_bwd_shared"), "ccl_bwd_shared_scratch_bytes")
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int] * 3
+        fn.restype = ctypes.c_size_t
+    return int(fn(t, n, k))
+
+
 def ccl_bwd_shared(user, pos, negs, uu, pp, up, nn, un, w, g, *, mu: float,
                    theta: float):
     """Weighted Eq. 4/5 backward for the shared layout.  ``w`` (T, 1): the
@@ -246,21 +256,19 @@ def ccl_bwd_shared(user, pos, negs, uu, pp, up, nn, un, w, g, *, mu: float,
     if n > SHARED_MAX_N:
         raise ValueError(f"ccl_bwd_shared: n={n} exceeds the kernel's shared "
                          f"memory (at most {SHARED_MAX_N})")
-    lib = _build.library("ccl_bwd_shared")
-    rows = lib.ccl_bwd_shared_rows_per_block()
-    blocks = -(-t // rows)
     du, dp = torch.empty_like(user), torch.empty_like(pos)
     dn = torch.empty_like(negs)
-    part = torch.empty((blocks, n, k), dtype=torch.float64, device=user.device)
-    colpart = torch.empty((blocks, n), dtype=torch.float64, device=user.device)
     fn = _build.bind("ccl_bwd_shared", "ccl_bwd_shared", _SHARED_BWD_ARGS)
     with torch.cuda.device(user.device):
+        # The kernel's row scalars, fp64 wn, column sums and per-slab dn
+        # partials, laid out by the C side for this device's SM count.
+        nbytes = _shared_bwd_scratch_bytes(t, n, k)
+        scratch = torch.empty(nbytes, dtype=torch.uint8, device=user.device)
         err = fn(user.data_ptr(), pos.data_ptr(), negs.data_ptr(),
                  uu.data_ptr(), pp.data_ptr(), up.data_ptr(), nn.data_ptr(),
                  un.data_ptr(), w.data_ptr(), g.data_ptr(), du.data_ptr(),
-                 dp.data_ptr(), dn.data_ptr(), part.data_ptr(),
-                 colpart.data_ptr(), t, n, k, float(mu), float(theta),
-                 _build.stream_of(user))
+                 dp.data_ptr(), dn.data_ptr(), scratch.data_ptr(), t, n, k,
+                 float(mu), float(theta), _build.stream_of(user))
     _build.check(err, "ccl_bwd_shared")
     SHARED_BWD_LAUNCHES.bump("cuda")
     return du, dp, dn

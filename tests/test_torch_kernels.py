@@ -579,3 +579,54 @@ def test_cuda_flash_attention_matches_plain(cuda, b, hq, hkv, s, d, causal):
     with pytest.raises(ValueError):                     # S % 64 != 0
         flash_attention.flash_attention(q[:, :, :40], k[:, :, :40],
                                         v[:, :, :40])
+
+
+# The redesigned shared backward's edges: T not a multiple of its 32-row
+# chunks or of its slabs, K not a multiple of its 64- or 32-column tiles,
+# n below one 16-wide MMA tile, at one tile group (64) and at the most the
+# kernel takes (192, its 32-column layout); rows with w = 0; two calls
+# compared bit for bit.
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,n,k", [(1007, 8, 100), (1007, 8, 960),
+                                   (1007, 64, 100), (8183, 64, 960),
+                                   (1007, 192, 100), (1007, 192, 960),
+                                   (45, 5, 962)])
+def test_cuda_ccl_bwd_shared_edges_repeat(cuda, t, n, k):
+    u, p, negs = _t(*_shared(t, n, k, seed=9), device=cuda)
+    w = torch.full((t, 1), 1.0 / t, device=cuda)
+    w[::7] = 0.0
+    w[-1] = 0.0                                         # the ragged last row
+    stats = ccl_similarity.ccl_stats_shared_plain(u, p, negs)
+    g = torch.tensor([float(t)], device=cuda)
+    args = (u, p, negs, *stats, w, g)
+    ccl_similarity.SHARED_BWD_LAUNCHES.reset()
+    got = ccl_similarity.ccl_bwd_shared(*args, mu=1.3, theta=0.05)
+    again = ccl_similarity.ccl_bwd_shared(*args, mu=1.3, theta=0.05)
+    want = ccl_similarity.ccl_bwd_shared_plain(*args, mu=1.3, theta=0.05)
+    torch.cuda.synchronize()
+    assert ccl_similarity.SHARED_BWD_LAUNCHES.count() == 2
+    for a, b_, want_a in zip(got, again, want):
+        assert a.shape == want_a.shape
+        assert torch.equal(a, b_)                       # same bits every run
+        torch.testing.assert_close(a, want_a, atol=1e-6, rtol=1e-5)
+    for x in got[:2]:
+        assert not x[::7].any() and not x[-1].any()
+
+
+# The redesigned flash kernel's edges: every head width it takes, causal and
+# full, one key tile (S = 64) and sixteen (S = 1,024), with GQA; two calls
+# compared bit for bit.
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s", [64, 1024])
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_cuda_flash_attention_edges_repeat(cuda, d, s, causal):
+    q, k, v = _t(*_qkv(2, 6, 2, s, d, seed=10), device=cuda)
+    flash_attention.FLASH_LAUNCHES.reset()
+    got = flash_attention.flash_attention(q, k, v, causal=causal)
+    again = flash_attention.flash_attention(q, k, v, causal=causal)
+    want = ref.attention_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.FLASH_LAUNCHES.count() == 2
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got, want, atol=1e-6, rtol=1e-5)

@@ -1,27 +1,62 @@
 #!/usr/bin/env python3
-"""Where the time of the port's redesigned row and statistics kernels goes,
-on one CUDA card.
+"""Where the time of the port's redesigned kernels goes, on one CUDA card.
 
-    python3 tools/probe_kernels.py
+    python3 tools/probe_kernels.py [--parts stats,bwd,flash,ties,segment_sum]
 
-Builds ``src/repro_torch/csrc/ccl_stats_shared.cu`` with nvcc, with two
-copies of it: "loads only", whose K loop streams u, p and the negatives
-through its ring and computes nothing, and "compute only", whose K loop
-computes on whatever the ring holds and loads nothing (its results are
-garbage; only its time is read).  At the LM head's shape (T = 8,184, K = 960,
-n = 64, as in chip_smoke.py phase 11) it times the three,
-``torch.matmul(u, negs.T)`` and ``torch.add(u, p)`` (a plain pass that reads
-u and p); at phase 3's row-update shape (2,048 ids into a 400,000 x 128
-table) the gather-FMA kernel and ``index_add_``; and a one-element kernel,
-the floor of this way of timing.  Each is timed as chip_smoke.py times
-kernels (the median of 30 CUDA-event timings), once after each of two ways
-of evicting the 50 MB L2: writing a 256 MB buffer (chip_smoke.py's flush,
-which leaves the L2 full of dirty lines that a kernel's reads must first
-write back) and reading it (clean lines).  Prints one line per call and the
-card's name and power limit.  Needs the card; imports nothing of JAX.
+Each part prints one line per measurement with the card's name and power
+limit; the last line is the card alone.  Needs the card; imports nothing of
+JAX.  Kernel times are taken as chip_smoke.py takes them (the median of 30
+CUDA-event timings, the L2 cache evicted first), unless a part says
+otherwise.
+
+- ``stats``: ``src/repro_torch/csrc/ccl_stats_shared.cu`` at the LM head's
+  shape (T = 8,184, K = 960, n = 64, as in chip_smoke.py phase 11) with two
+  copies of it: "loads only", whose K loop streams u, p and the negatives
+  through its ring and computes nothing, and "compute only", whose K loop
+  computes on whatever the ring holds and loads nothing (its results are
+  garbage; only its time is read); ``torch.matmul(u, negs.T)`` and
+  ``torch.add(u, p)`` (a plain pass that reads u and p); at phase 3's
+  row-update shape (2,048 ids into a 400,000 x 128 table) the gather-FMA
+  kernel and ``index_add_``; and a one-element kernel, the floor of this
+  way of timing.  Each once after each of two ways of evicting the 50 MB
+  L2: writing a 256 MB buffer (chip_smoke.py's flush, which leaves the L2
+  full of dirty lines that a kernel's reads must first write back) and
+  reading it (clean lines).
+- ``bwd``: ``csrc/ccl_bwd_shared.cu`` at the same shape, and copies of it
+  built with ``-DPROBE_NO_COMPUTE`` (its loads and stores, no MMAs),
+  ``-DPROBE_NO_LOADS`` (its MMAs and stores, none of the loads of u, p and
+  the ring) and both (neither: what is left is its skeleton of barriers,
+  u_hat staging, epilogue arithmetic and stores), both flushes; and the
+  device time of each of its three passes from torch.profiler over 20
+  calls.
+- ``flash``: ``csrc/flash_attention.cu`` (fp32 on the SIMT pipes), copies
+  of it without the FMAs of q k^T and without those of P v (garbage
+  results; only their time is read), and the split-TF32 attempt
+  ``csrc/attempts/flash_attention_3xtf32.cu``, at smollm-360m's attention
+  shape (B=8, Hq=15, Hkv=5, S=1,024, D=64), causal and full: each one's
+  time, and its largest error against the plain version
+  (``ref.attention_ref``) and whether every element is within
+  chip_smoke.py's 1e-6 + 1e-5*|plain|, on unit-normal q, k, v and on q, k
+  scaled by 4 (logits 16 times larger, as the model's own are: chip_smoke.py
+  phase 12).
+- ``ties``: the two kernels whose times PR 15 found level with their
+  library calls, timed in alternation (kernel, library, library, kernel)
+  over 100 repetitions, with the median and the 10th and 90th percentiles
+  of each: the gather-dequant kernel at the int8 ``AMAZON`` step's user
+  gather (1,024 ids into a 20,980,000 x 128 int8 table) against
+  ``q.index_select``, and the per-example stats kernel at the MF step's
+  shape (B = 1,024, n = 64, K = 128) against ``einsum("bk,bnk->bn")``.
+- ``segment_sum``: the int8 ``AMAZON`` step (chip_smoke.py phase 8's
+  configuration and dataset) profiled over 16-step windows with
+  ``core/tiling.py::sorted_segment_sum`` as it is and with its earlier form,
+  which also summed the dropped tile misses as one more segment (kept here
+  as ``sorted_segment_sum_before``), in the order current, earlier,
+  earlier, current: ``segment_reduce``'s device time per step and the
+  step's busy time.
 """
 from __future__ import annotations
 
+import argparse
 import ctypes
 import os
 import statistics
@@ -31,18 +66,22 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-STATS_SRC = os.path.join(ROOT, "src", "repro_torch", "csrc", "ccl_stats_shared.cu")
+CSRC = os.path.join(ROOT, "src", "repro_torch", "csrc")
 OUT_DIR = os.path.join(ROOT, "build", "probe_kernels")
 T, K, N_NEG = 8 * 1023, 960, 64
 ROWS, B = 400_000, 1024
+AMAZON_USERS = 20_980_000
+PARTS = ("stats", "bwd", "flash", "ties", "segment_sum")
+ATTEMPTS = os.path.join(CSRC, "attempts")
 
 _COMPUTE = "    const float* su = ring + (c % STAGES) * STAGE_FLOATS;"
 _LOOP_END = "  cp_async_wait<0>();"
 _LOADS = ("if (c + STAGES - 1 < chunks) load(c + STAGES - 1);", "if (c < chunks) load(c);")
 
 
-def stats_variants(src: str) -> dict[str, str]:
-    """The kernel source and its "loads only" and "compute only" copies."""
+def stats_variants(src: str) -> dict[str, tuple[str, tuple[str, ...]]]:
+    """The stats kernel's source and its "loads only" and "compute only"
+    copies, each with no extra compiler flags."""
     for anchor in (_COMPUTE, _LOOP_END, *_LOADS):
         if anchor not in src:
             raise ValueError(f"ccl_stats_shared.cu no longer contains {anchor!r}")
@@ -54,21 +93,34 @@ def stats_variants(src: str) -> dict[str, str]:
     compute_only = src
     for anchor in _LOADS:
         compute_only = compute_only.replace(anchor, "")
-    return {"ccl_stats_shared": src, "ccl_stats_shared, loads only": loads_only,
-            "ccl_stats_shared, compute only": compute_only}
+    return {"ccl_stats_shared": (src, ()),
+            "ccl_stats_shared, loads only": (loads_only, ()),
+            "ccl_stats_shared, compute only": (compute_only, ())}
 
 
-def build(variants: dict[str, str]) -> dict[str, ctypes.CDLL]:
+def bwd_variants(src: str) -> dict[str, tuple[str, tuple[str, ...]]]:
+    """The shared backward's source as it is, without its MMAs, without its
+    loads, and without either (the source's ``PROBE_NO_*`` switches)."""
+    for macro in ("PROBE_NO_COMPUTE", "PROBE_NO_LOADS"):
+        if macro not in src:
+            raise ValueError(f"ccl_bwd_shared.cu no longer reads {macro}")
+    return {"ccl_bwd_shared": (src, ()),
+            "ccl_bwd_shared, loads only": (src, ("-DPROBE_NO_COMPUTE",)),
+            "ccl_bwd_shared, compute only": (src, ("-DPROBE_NO_LOADS",)),
+            "ccl_bwd_shared, neither": (src, ("-DPROBE_NO_LOADS", "-DPROBE_NO_COMPUTE"))}
+
+
+def build(variants: dict[str, tuple[str, tuple[str, ...]]], tag: str) -> dict[str, ctypes.CDLL]:
     """Compile every variant in parallel, one nvcc each, and load them."""
     from repro_torch.kernels import _build
     os.makedirs(OUT_DIR, exist_ok=True)
     procs = {}
-    for i, (name, src) in enumerate(variants.items()):
-        cu, so = (os.path.join(OUT_DIR, f"v{i}{ext}") for ext in (".cu", ".so"))
+    for i, (name, (src, flags)) in enumerate(variants.items()):
+        cu, so = (os.path.join(OUT_DIR, f"{tag}{i}{ext}") for ext in (".cu", ".so"))
         with open(cu, "w") as f:
             f.write(src)
         procs[name] = (so, subprocess.Popen(
-            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", so, cu],
+            [_build.nvcc_path(), *_build.NVCC_FLAGS, *flags, "-o", so, cu],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
     for name, (so, proc) in procs.items():
@@ -79,20 +131,87 @@ def build(variants: dict[str, str]) -> dict[str, ctypes.CDLL]:
     return libs
 
 
-def main() -> int:
+def read_source(name: str) -> str:
+    """``csrc/<name>.cu`` as text."""
+    with open(os.path.join(CSRC, f"{name}.cu")) as f:
+        return f.read()
+
+
+def sorted_segment_sum_before(sidx, values, num_segments: int):
+    """``core/tiling.py::sorted_segment_sum`` before the dropped entries were
+    cut from its lengths: they were summed as segment ``num_segments`` and
+    sliced off."""
     import torch
-    if not torch.cuda.is_available():
-        print("probe_kernels: needs a CUDA device", file=sys.stderr)
-        return 1
-    from repro_torch.kernels import embedding_update
-    dev = torch.device("cuda")
-    with open(STATS_SRC) as f:
-        libs = build(stats_variants(f.read()))
+    bounds = torch.searchsorted(
+        sidx, torch.arange(num_segments + 2, dtype=sidx.dtype, device=sidx.device))
+    sums = torch.segment_reduce(values, "sum", lengths=bounds.diff(), axis=0,
+                                unsafe=True)
+    return sums[:num_segments]
+
+
+class Timer:
+    """CUDA-event timings of single calls after an L2 eviction."""
+
+    def __init__(self, dev):
+        import torch
+        self.flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)   # 256 MB > L2
+
+    def once(self, fn, evict) -> float:
+        """One timing (ms) of ``fn()``: ``evict()``, a device-side sleep that
+        holds the stream while the host enqueues, then the events."""
+        import torch
+        evict()
+        torch.cuda._sleep(4_000_000)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end)
+
+    def median(self, fn, evict=None, reps: int = 30) -> float:
+        """Median of ``reps`` timings after 3 warm-up calls (default eviction:
+        the written flush)."""
+        evict = evict or self.flush.zero_
+        for _ in range(3):
+            fn()
+        return statistics.median(self.once(fn, evict) for _ in range(reps))
+
+
+def card_line() -> str:
+    """``name, power.limit`` of card 0 as nvidia-smi reports them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def both_flushes(calls: dict, timer: Timer, card: str) -> None:
+    """Print each call's median after a written and after a read flush."""
+    for name, fn in calls.items():
+        dirty = timer.median(fn, timer.flush.zero_)
+        clean = timer.median(fn, timer.flush.sum)
+        print(f"{name}: {1e3 * dirty:.1f} us after a written flush, {1e3 * clean:.1f} us "
+              f"after a read flush | {card}", flush=True)
+
+
+def shared_inputs(dev):
+    """u, p, negs at the LM head's shape, and their stats."""
+    import torch
+    from repro_torch.kernels import ccl_similarity
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     u = torch.randn(T, K, generator=gen, device=dev)
     p = 0.1 * torch.randn(T, K, generator=gen, device=dev)
     negs = 0.1 * torch.randn(N_NEG, K, generator=gen, device=dev)
+    return u, p, negs, ccl_similarity.ccl_stats_shared_plain(u, p, negs)
+
+
+def part_stats(dev, timer: Timer, card: str) -> None:
+    """The step-shared stats kernel and its copies; the gather-FMA kernel."""
+    import torch
+    from repro_torch.kernels import embedding_update
+    libs = build(stats_variants(read_source("ccl_stats_shared")), "stats")
+    u, p, negs, _ = shared_inputs(dev)
     outs = [torch.empty(T, 1, device=dev) for _ in range(3)] + [
         torch.empty(1, N_NEG, device=dev), torch.empty(T, N_NEG, device=dev)]
     stream = torch.cuda.current_stream().cuda_stream
@@ -109,6 +228,8 @@ def main() -> int:
     calls["torch.matmul(u, negs.T)"] = lambda: torch.matmul(u, negs.T)
     calls["torch.add(u, p)"] = lambda: torch.add(u, p)
 
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
     table = 0.1 * torch.randn(ROWS, 128, generator=gen, device=dev)
     tile_ids = torch.randperm(ROWS, generator=gen, device=dev)[:B]
     ids = torch.cat([tile_ids[torch.randint(0, B, (B // 2,), generator=gen, device=dev)],
@@ -122,32 +243,243 @@ def main() -> int:
     calls["index_add_"] = lambda: table.index_add_(0, ids, grads, alpha=-0.05)
     one = torch.zeros(1, device=dev)
     calls["one-element kernel"] = lambda: one.add_(1)
+    both_flushes(calls, timer, card)
 
-    flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)   # 256 MB > L2
 
-    def time_ms(fn, evict, reps=30) -> float:
-        for _ in range(3):
-            fn()
-        times = []
-        for _ in range(reps):
-            evict()
-            torch.cuda._sleep(4_000_000)
-            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            start.record()
-            fn()
-            end.record()
-            end.synchronize()
-            times.append(start.elapsed_time(end))
-        return statistics.median(times)
+def part_bwd(dev, timer: Timer, card: str) -> None:
+    """The shared backward and its copies without compute and without loads;
+    the device time of each of its passes."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import ccl_similarity
+    libs = build(bwd_variants(read_source("ccl_bwd_shared")), "bwd")
+    u, p, negs, stats = shared_inputs(dev)
+    w = torch.full((T, 1), 1.0 / T, device=dev)
+    g = torch.full((1,), float(T), device=dev)
+    du, dp, dn = torch.empty_like(u), torch.empty_like(p), torch.empty_like(negs)
+    stream = torch.cuda.current_stream().cuda_stream
+    calls = {}
+    for name, lib in libs.items():
+        nbytes_fn = lib.ccl_bwd_shared_scratch_bytes
+        nbytes_fn.argtypes = [ctypes.c_int] * 3
+        nbytes_fn.restype = ctypes.c_size_t
+        scratch = torch.empty(int(nbytes_fn(T, N_NEG, K)), dtype=torch.uint8, device=dev)
+        fn = lib.ccl_bwd_shared
+        fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 3 + [ctypes.c_float] * 2
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        args = (u.data_ptr(), p.data_ptr(), negs.data_ptr(),
+                *(x.data_ptr() for x in stats), w.data_ptr(), g.data_ptr(), du.data_ptr(),
+                dp.data_ptr(), dn.data_ptr(), scratch.data_ptr(), T, N_NEG, K, 1.0, 0.0,
+                stream)
+        if fn(*args) != 0:
+            raise RuntimeError(f"{name}: launch failed")
+        calls[name] = lambda fn=fn, args=args, scratch=scratch: fn(*args)
+    calls["torch.add(u, p)"] = lambda: torch.add(u, p)
+    both_flushes(calls, timer, card)
 
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True, timeout=60).stdout.strip()
-    for name, fn in calls.items():
-        dirty = time_ms(fn, flush.zero_)
-        clean = time_ms(fn, flush.sum)
-        print(f"{name}: {1e3 * dirty:.1f} us after a written flush, {1e3 * clean:.1f} us "
-              f"after a read flush | {card}", flush=True)
+    bwd_args = (u, p, negs, *stats, w, g)
+    for _ in range(3):
+        ccl_similarity.ccl_bwd_shared(*bwd_args, mu=1.0, theta=0.0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            timer.flush.zero_()
+            ccl_similarity.ccl_bwd_shared(*bwd_args, mu=1.0, theta=0.0)
+        torch.cuda.synchronize()
+    passes = {e.key: e.self_device_time_total / e.count for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA
+              and any(k in e.key for k in ("scalars_kernel", "tile_kernel", "reduce_kernel"))}
+    if not passes:
+        print("ccl_bwd_shared passes: the profiler saw no device time: not measured")
+    for name, us in passes.items():
+        print(f"ccl_bwd_shared pass {name[:60]}: {us:.1f} us per call (profiler, after "
+              f"a written flush) | {card}", flush=True)
+
+
+def alternate(timer: Timer, kernel, library, reps: int = 100):
+    """Timings (ms) of ``kernel`` and ``library`` taken in the order kernel,
+    library, library, kernel, ``reps`` times, each after the written flush."""
+    for _ in range(3):
+        kernel()
+        library()
+    ks, ls = [], []
+    for _ in range(reps):
+        ks.append(timer.once(kernel, timer.flush.zero_))
+        ls.append(timer.once(library, timer.flush.zero_))
+        ls.append(timer.once(library, timer.flush.zero_))
+        ks.append(timer.once(kernel, timer.flush.zero_))
+    return ks, ls
+
+
+def spread(xs) -> str:
+    """Median and the 10th and 90th percentiles, in us."""
+    q = statistics.quantiles(xs, n=10)
+    return (f"median {1e3 * statistics.median(xs):.2f} us (p10 {1e3 * q[0]:.2f}, "
+            f"p90 {1e3 * q[-1]:.2f}; {len(xs)} timings)")
+
+
+_FLASH_CUTS = {
+    "flash_attention, no P v FMAs": (
+        "            acc[i][c].x = fmaf(pw, vv[c].x, acc[i][c].x);\n"
+        "            acc[i][c].y = fmaf(pw, vv[c].y, acc[i][c].y);\n"
+        "            acc[i][c].z = fmaf(pw, vv[c].z, acc[i][c].z);\n"
+        "            acc[i][c].w = fmaf(pw, vv[c].w, acc[i][c].w);",
+        "            acc[i][c].x += pw;"),
+    "flash_attention, no q k^T FMAs": (
+        "        for (int j = 0; j < KJ; ++j) s[i][j] = dot4(s[i][j], qv[i], kv[j]);",
+        "        for (int j = 0; j < KJ; ++j) s[i][j] += qv[i].x + kv[j].x;"),
+}
+
+
+def part_flash(dev, timer: Timer, card: str) -> None:
+    """The flash kernel and its split-TF32 attempt: time and accuracy."""
+    import torch
+    from repro_torch.kernels import ref
+    src = read_source("flash_attention")
+    srcs = {"flash_attention": (src, ())}
+    for name, (old, new) in _FLASH_CUTS.items():
+        if old not in src:
+            raise ValueError(f"flash_attention.cu no longer contains {old!r}")
+        srcs[name] = (src.replace(old, new), ())
+    with open(os.path.join(ATTEMPTS, "flash_attention_3xtf32.cu")) as f:
+        srcs["flash_attention_3xtf32 (attempt)"] = (f.read(), ())
+    libs = build(srcs, "flash")
+    b, hq, hkv, s, d = 8, 15, 5, 1024, 64
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(14)
+    q = torch.randn(b, hq, s, d, generator=gen, device=dev)
+    k = torch.randn(b, hkv, s, d, generator=gen, device=dev)
+    v = torch.randn(b, hkv, s, d, generator=gen, device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    out = torch.empty_like(q)
+    for causal in (True, False):
+        for qk_scale in (1.0, 4.0):
+            qq, kk = q * qk_scale, k * qk_scale
+            want = ref.attention_ref(qq, kk, v, causal=causal)
+            for name, lib in libs.items():
+                fn = lib.flash_attention_fwd
+                fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                               + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                fn.restype = ctypes.c_int
+                args = (qq.data_ptr(), kk.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq,
+                        hkv, s, d, d ** -0.5, int(causal), stream)
+                if fn(*args) != 0:
+                    raise RuntimeError(f"{name}: launch failed")
+                torch.cuda.synchronize()
+                if name in _FLASH_CUTS:
+                    if qk_scale == 1.0:
+                        ms = timer.median(lambda fn=fn, args=args: fn(*args))
+                        print(f"{name} {'causal' if causal else 'full'}: {1e3 * ms:.1f} us "
+                              f"| {card}", flush=True)
+                    continue
+                diff = (out - want).abs()
+                ok = bool((diff <= 1e-6 + 1e-5 * want.abs()).all())
+                ms = timer.median(lambda fn=fn, args=args: fn(*args)) if qk_scale == 1.0 else None
+                when = f"{1e3 * ms:.1f} us, " if ms is not None else ""
+                print(f"{name} {'causal' if causal else 'full'}, q and k x{qk_scale:g}: "
+                      f"{when}max abs err {diff.max().item():.3e}, within tolerance: {ok} "
+                      f"| {card}", flush=True)
+
+
+def part_ties(dev, timer: Timer, card: str) -> None:
+    """#5's user gather against q.index_select and #1 against einsum."""
+    import torch
+    from repro_torch.kernels import ccl_similarity, embedding_update
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    q8 = torch.randint(-127, 128, (AMAZON_USERS, 128), generator=gen, device=dev,
+                       dtype=torch.int8)
+    scale = torch.rand(AMAZON_USERS, 1, generator=gen, device=dev) * 1e-2 + 1e-4
+    ids = torch.randint(0, AMAZON_USERS, (B,), generator=gen, device=dev)
+    ks, ls = alternate(timer, lambda: embedding_update.gather_dequant_rows(q8, scale, ids),
+                       lambda: q8.index_select(0, ids))
+    print(f"tie gather_dequant (user gather, {B} ids into {AMAZON_USERS} x 128 int8): "
+          f"kernel {spread(ks)}; q.index_select {spread(ls)} | {card}", flush=True)
+    del q8, scale
+    u = 0.1 * torch.randn(B, 128, generator=gen, device=dev)
+    p = 0.1 * torch.randn(B, 128, generator=gen, device=dev)
+    negs = 0.1 * torch.randn(B, N_NEG, 128, generator=gen, device=dev)
+    ks, ls = alternate(timer, lambda: ccl_similarity.ccl_stats(u, p, negs),
+                       lambda: torch.einsum("bk,bnk->bn", u, negs))
+    print(f"tie ccl_stats (B={B}, n={N_NEG}, K=128): kernel {spread(ks)}; "
+          f"einsum {spread(ls)} | {card}", flush=True)
+
+
+def part_segment_sum(dev, card: str) -> None:
+    """The int8 AMAZON step's segment_reduce time with the current and the
+    earlier sorted_segment_sum."""
+    import dataclasses
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs.heat_mf import AMAZON
+    from repro_torch.core import mf, tiling
+    from repro_torch.data import pipeline
+    from repro_torch.train import trainer
+    window = 16
+    cfg = dataclasses.replace(AMAZON, backend="pallas", update_impl="pallas",
+                              table_format="int8")
+    dds = pipeline.device_cf_dataset(pipeline.synth_cf_dataset(4096, cfg.num_items), dev)
+    state = mf.init_mf(0, cfg, device=dev)
+    body = mf.make_scan_body(cfg, lambda s: pipeline.cf_batch_device(
+        dds, 0, s, B, cfg.history_len), 0)
+    executor = trainer.EpochExecutor(body, window)
+    current = tiling.sorted_segment_sum
+    step = 0
+    state, _ = executor.run(state, step, window)          # warm-up
+    step += window
+    for label, fn in (("current", current), ("earlier", sorted_segment_sum_before),
+                      ("earlier", sorted_segment_sum_before), ("current", current)):
+        tiling.sorted_segment_sum = fn
+        try:
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                state, _ = executor.run(state, step, window)
+                torch.cuda.synchronize()
+        finally:
+            tiling.sorted_segment_sum = current
+        step += window
+        kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        busy = sum(e.self_device_time_total for e in kern) / window
+        seg = sum(e.self_device_time_total for e in kern if "segment_reduce" in e.key) / window
+        if busy <= 0:
+            print(f"segment_sum {label}: the profiler saw no device time: not measured")
+            continue
+        print(f"segment_sum {label}: AMAZON int8 step, segment_reduce {seg:.1f} us of "
+              f"{busy:.1f} us device time per step ({window}-step window) | {card}",
+              flush=True)
+
+
+def main() -> int:
+    import torch
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--parts", default=",".join(PARTS),
+                    help=f"comma-separated subset of {','.join(PARTS)}")
+    parts = ap.parse_args().parts.split(",")
+    unknown = set(parts) - set(PARTS)
+    if unknown:
+        ap.error(f"unknown parts {sorted(unknown)}")
+    if not torch.cuda.is_available():
+        print("probe_kernels: needs a CUDA device", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda")
+    card = card_line()
+    timer = Timer(dev)
+    if "stats" in parts:
+        part_stats(dev, timer, card)
+    if "bwd" in parts:
+        part_bwd(dev, timer, card)
+    if "flash" in parts:
+        part_flash(dev, timer, card)
+    if "ties" in parts:
+        part_ties(dev, timer, card)
+    if "segment_sum" in parts:
+        del timer
+        torch.cuda.empty_cache()
+        part_segment_sum(dev, card)
     print(card)
     return 0
 
