@@ -17,7 +17,8 @@ smollm-360m's attention shape.  Phases, one line each:
   3. each kernel against its plain PyTorch version at the main path's shapes
      (B=1,024, n=64, K=128; the row update takes 2,048 ids with duplicates
      into the 400,000-row table): max abs error against the stated
-     tolerance, and the median of 30 CUDA-event timings of the kernel, the
+     tolerance (the backward also called twice and compared bit for bit),
+     and the median of 30 CUDA-event timings of the kernel, the
      plain version and, where one PyTorch call computes the same function,
      that call (``library_ms``), each with the L2 cache flushed first, and
      the kernel's share of its bound (bound over kernel time); the
@@ -40,8 +41,10 @@ smollm-360m's attention shape.  Phases, one line each:
      falls, steps/s, peak device memory, and a profiled window; then the
      gather-dequant kernel against its plain version, bit for bit, and
      timed, on the trained tables: at the ids of the run's first batch (the
-     user, positive and history gathers; the kernels line reports the
-     history gather) and at ids across each whole table, last rows included
+     user, positive and history gathers, after one line with the run's
+     launches of the kernel, which cover all three gathers; the kernels
+     line reports the history gather) and at ids across each whole
+     table, last rows included
      (the profiled window reports ``segment_reduce`` as phase 7 does);
   9. an int8 restart: ``MF_100M_PALLAS`` with int8 tables, a 16-item
      history and a tile refresh every 8 steps, 32 steps uninterrupted and
@@ -620,8 +623,12 @@ def main() -> int:
 
     g_unit = torch.ones(1, device=dev)     # unit cotangent: O(1) outputs
     bwd_args = (u, p, negs, *stats, g_unit)
-    err = max_err(ccl_similarity.ccl_bwd(*bwd_args, mu=1.0, theta=0.0),
-                  ccl_similarity.ccl_bwd_plain(*bwd_args, mu=1.0, theta=0.0))
+    got = ccl_similarity.ccl_bwd(*bwd_args, mu=1.0, theta=0.0)
+    err = max_err(got, ccl_similarity.ccl_bwd_plain(*bwd_args, mu=1.0, theta=0.0))
+    assert all(torch.equal(a, b_) for a, b_ in zip(
+        got, ccl_similarity.ccl_bwd(*bwd_args, mu=1.0, theta=0.0))), \
+        "ccl_bwd: two calls differ"
+    del got
     nbytes = (4 * (2 * B * K + B * N_NEG * K + 3 * B + 2 * B * N_NEG + 1)
               + 4 * (2 * B * K + B * N_NEG * K))
     b_ms, b_by = bound(nbytes, 5 * B * N_NEG * K + 7 * B * K + 10 * B * N_NEG)
@@ -671,7 +678,8 @@ def main() -> int:
     for kd in kernels:
         lib = ("n/a" if kd["library_ms"] is None
                else "%.4f ms" % kd["library_ms"])
-        print(f"[3 kernel] {kd['name']}: max abs err {kd['max_abs_err']:.3e} "
+        same = " same bits on two calls;" if kd["name"] == "ccl_bwd" else ""
+        print(f"[3 kernel] {kd['name']}:{same} max abs err {kd['max_abs_err']:.3e} "
               f"(tol {ATOL:g} + {RTOL:g}*|plain|); {kd['ms']:.4f} ms kernel, "
               f"{kd['plain_ms']:.4f} ms plain, bound {kd['bound_ms']:.4f} ms "
               f"({kd['bound_by']}; {bound_share(kd)}), library {lib} | {card}",
@@ -680,14 +688,15 @@ def main() -> int:
     q8 = torch.randint(-127, 128, (ROWS, K), generator=gen, device=dev,
                        dtype=torch.int8)
     scale8 = torch.rand(ROWS, 1, generator=gen, device=dev) * 1e-2 + 1e-4
-    for n_ids in DEQUANT_IDS:
+    for n_ids, gathers in zip(DEQUANT_IDS, ("user and positive", "history")):
         fresh = torch.randint(0, ROWS, (n_ids - n_ids // 4,), generator=gen,
                               device=dev)
         ids = torch.cat([fresh, fresh[:n_ids // 4]])      # duplicates
         kd = gather_dequant_entry(q8, scale8, ids, flush)
-        print(f"[3 gather_dequant] {n_ids} ids ({n_ids // 4} repeated) from a "
-              f"synthetic {ROWS}-row int8 table: {dequant_summary(kd)} | {card}",
-              flush=True)
+        print(f"[3 gather_dequant] {n_ids} ids ({n_ids // 4} repeated; the size "
+              f"of the int8 step's {gathers} gathers, one launch each a step: "
+              f"phase 8) from a synthetic {ROWS}-row int8 table: "
+              f"{dequant_summary(kd)} | {card}", flush=True)
     del q8, scale8
 
     # ---- 4: the kernel loss against the plain fused loss -------------------
@@ -857,6 +866,9 @@ def main() -> int:
         cases.append((f"{name}, whole range", table, torch.cat([
             torch.randint(0, rows, (B - 64,), generator=gen, device=dev),
             torch.arange(rows - 64, rows, device=dev)])))
+    print(f"[8 gather_dequant] launches in the run: {launches8['gather_dequant']} "
+          f"over {INT8_STEPS} steps, for the step's three gathers (user, positive, "
+          f"history) together | {card}", flush=True)
     for name, table, ids in cases:
         kd = gather_dequant_entry(table.q, table.scale, ids, flush)
         print(f"[8 gather_dequant] {name}: {ids.numel()} ids into the trained "

@@ -1,54 +1,88 @@
-// Gather + dequantize rows of an int8 embedding table, one warp per output row:
+// Gather + dequantize rows of an int8 embedding table:
 //     out[i, :] = float(q[ids[i], :]) * scale[ids[i]]
 //
 // Replaces the TPU kernel src/repro/kernels/embedding_update.py::gather_dequant_rows
 // (body _gather_dequant_kernel), where scalar-prefetched ids drove one row DMA per
-// grid step.  Here lane 0 of the warp reads the row's id and then its scale, and
-// a shuffle hands both to the other lanes; each lane then converts 4 int8 values
-// at a time (one 32-bit char4 load), multiplies each by the scale with one
-// correctly rounded fp32 multiply (__fmul_rn: no fused or approximate
-// arithmetic, so the result is bit-identical to the plain PyTorch version) and
-// stores them as one float4.  K=128 is one iteration of the warp.  A row whose
-// int8 start is not 4-byte aligned (K not a multiple of 4) takes the scalar path.
+// grid step.
 //
 // Bound on an H100 (3.35 TB/s): bytes.  Per row it reads K bytes, a 4-byte
-// scale and an 8-byte id and writes 4*K bytes: at the user gather (B=1,024,
-// K=128) about 0.68 MB, 0.2 us, so it is launch-bound; at the history gather of
-// AMAZON (16,384 rows) about 10.7 MB, 3.2 us.  The design keeps each row one
-// warp with coalesced 4-byte loads and 16-byte stores, and the fp32 table is
-// never materialized: only the gathered (B, K) block is written.
+// scale and an 8-byte id and writes 4*K bytes: at the int8 AMAZON step's user
+// and positive gathers (1,024 ids, K = 128) about 0.68 MB, 0.2 us, so latency
+// and launch bound; at its history gather (16,384 ids) about 10.7 MB, 3.2 us.
+//
+// Design: the only chain a row must wait for is id -> row, so a row's scale
+// and its bytes are both requested as soon as its id is known (the kernel
+// this one replaced loaded the scale first: three round trips to memory, not
+// two).  A warp takes one output row: every lane loads the row's id (one
+// broadcast load), then at once the row's scale and the lane's V-byte piece
+// of the row (V = 4 when K % 4 == 0, q is 4-byte and out 16-byte aligned, so
+// a K = 128 row is one warp instruction of 32 x 4 bytes; otherwise V = 1,
+// and a row longer than 32 pieces takes further passes of the warp).  Each
+// lane converts its pieces with one correctly rounded fp32 multiply per
+// element (__fmul_rn: no fused or approximate arithmetic, so the result is
+// bit-identical to the plain PyTorch version) and stores them, one float4 a
+// lane, so a warp writes each 512-byte row whole.  Row offsets are 64-bit
+// (tables past 2^31 bytes).
+//
+// What the card showed (tools/probe_kernels.py, part dequant, which times
+// this kernel beside csrc/attempts/gather_dequant_rows.cu, several rows a
+// warp and streaming stores, and csrc/attempts/gather_dequant_tiles.cu;
+// PERF.md, kernel #5): many independent warps with one row each beat fewer
+// warps with several rows in flight, a warp instruction that spans several
+// random rows or scales (16-byte pieces, 8 lanes a row) runs slower than one
+// that reads one row, 16-byte pieces leave each float4 store a half-filled
+// 32-byte sector (the attempt's one-wave grid did not make up for it), and
+// streaming stores gain nothing.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-__global__ void gather_dequant_kernel(const int8_t* __restrict__ q, const float* __restrict__ scale,
-                                      const int64_t* __restrict__ ids, float* __restrict__ out,
-                                      int B, int K, bool vec4) {
-  const int i = (int)((blockIdx.x * (size_t)blockDim.x + threadIdx.x) >> 5);
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+
+template <int V> struct Piece;
+template <> struct Piece<4> { using T = int; };
+template <> struct Piece<1> { using T = int8_t; };
+
+__device__ __forceinline__ float deq(uint32_t word, int byte, float s) {
+  return __fmul_rn((float)(int8_t)(word >> (8 * byte)), s);
+}
+
+// Convert one V-byte piece and store its V floats at dst.
+__device__ __forceinline__ void put(float* dst, int v, float s) {
+  const uint32_t w = (uint32_t)v;
+  *reinterpret_cast<float4*>(dst) =
+      make_float4(deq(w, 0, s), deq(w, 1, s), deq(w, 2, s), deq(w, 3, s));
+}
+__device__ __forceinline__ void put(float* dst, int8_t v, float s) { *dst = __fmul_rn((float)v, s); }
+
+template <int V>
+__global__ void __launch_bounds__(kThreads, 8)
+gather_dequant_kernel(const int8_t* __restrict__ q, const float* __restrict__ scale,
+                      const int64_t* __restrict__ ids, float* __restrict__ out, int B, int K) {
+  using T = typename Piece<V>::T;
   const int lane = threadIdx.x & 31;
-  if (i >= B) return;  // the whole warp leaves together
-  long long id = 0;
-  float s = 0.f;
-  if (lane == 0) {
-    id = (long long)ids[i];
-    s = scale[id];
-  }
-  id = __shfl_sync(0xffffffffu, id, 0);
-  s = __shfl_sync(0xffffffffu, s, 0);
-  const int8_t* row = q + id * (long long)K;
-  float* dst = out + (long long)i * K;
-  if (vec4) {
-    const char4* row4 = reinterpret_cast<const char4*>(row);
-    float4* dst4 = reinterpret_cast<float4*>(dst);
-    for (int c = lane; c < (K >> 2); c += 32) {
-      const char4 v = row4[c];
-      dst4[c] = make_float4(__fmul_rn((float)v.x, s), __fmul_rn((float)v.y, s),
-                            __fmul_rn((float)v.z, s), __fmul_rn((float)v.w, s));
-    }
-  } else {
-    for (int k = lane; k < K; k += 32) dst[k] = __fmul_rn((float)row[k], s);
-  }
+  const int pieces = K / V;  // pieces of a row
+  const long long row = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (row >= B) return;
+  const long long id = __ldg(ids + row);
+  const T* src = reinterpret_cast<const T*>(q + id * K);
+  const float s = __ldg(scale + id);  // the scale and the row's first piece
+  T v;                                // are both requested before either is used
+  if (lane < pieces) v = __ldg(src + lane);
+  float* dst = out + row * K;
+  if (lane < pieces) put(dst + lane * V, v, s);
+  for (int c = lane + 32; c < pieces; c += 32) put(dst + c * V, __ldg(src + c), s);
+}
+
+template <int V>
+int launch(const void* q, const void* scale, const void* ids, void* out, int B, int K,
+           cudaStream_t stream) {
+  const long long blocks = ((long long)B + kWarps - 1) / kWarps;
+  gather_dequant_kernel<V><<<(unsigned)blocks, kThreads, 0, stream>>>(
+      (const int8_t*)q, (const float*)scale, (const int64_t*)ids, (float*)out, B, K);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -56,10 +90,8 @@ __global__ void gather_dequant_kernel(const int8_t* __restrict__ q, const float*
 extern "C" int gather_dequant_rows(const void* q, const void* scale, const void* ids, void* out,
                                    int B, int K, void* stream) {
   if (B <= 0 || K <= 0) return 0;
-  const bool vec4 = (K % 4 == 0) && ((uintptr_t)q % 4 == 0) && ((uintptr_t)out % 16 == 0);
-  const int threads = 256;  // 8 warps, 8 rows per block
-  const int blocks = (B + 7) / 8;
-  gather_dequant_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const int8_t*)q, (const float*)scale, (const int64_t*)ids, (float*)out, B, K, vec4);
-  return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  if (K % 4 == 0 && (uintptr_t)q % 4 == 0 && (uintptr_t)out % 16 == 0)
+    return launch<4>(q, scale, ids, out, B, K, s);
+  return launch<1>(q, scale, ids, out, B, K, s);
 }

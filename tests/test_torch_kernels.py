@@ -66,6 +66,9 @@ def _t(*xs, device="cpu"):
 
 
 SHAPES = [(16, 8, 32), (13, 5, 32), (16, 8, 30), (1, 3, 8)]
+# The per-example backward's edges: n not a multiple of the kernel's 4 warps
+# or its 8-deep ring and above 64, K = 130 (not a multiple of 4), B = 1.
+BWD_EDGES = [(1, 67, 130), (3, 70, 128), (2, 192, 36), (5, 5, 130)]
 
 
 @pytest.mark.parametrize("b,n,k", SHAPES)
@@ -85,7 +88,7 @@ def test_ccl_stats_matches_pallas(jx, b, n, k):
 
 
 @pytest.mark.parametrize("mu,theta", [(1.0, 0.0), (1.7, 0.4)])
-@pytest.mark.parametrize("b,n,k", SHAPES)
+@pytest.mark.parametrize("b,n,k", SHAPES + BWD_EDGES)
 def test_ccl_bwd_matches_pallas(jx, b, n, k, mu, theta):
     u, p, negs = _cf(b, n, k, seed=1)
     stats = [np.asarray(s) for s in
@@ -225,14 +228,30 @@ def _int8_table(rows, k, seed=0):
     return q, scale
 
 
-DEQUANT_SHAPES = [(64, 16, 16), (50, 13, 30), (512, 40, 64), (9, 1, 3)]
+# (rows, B, K): the existing cases, then edges of the card's kernel (a warp a
+# row, in 4-byte pieces when K % 4 == 0 and in bytes otherwise, 32 pieces a
+# pass): K = 100, a multiple of 4 but not of 16 (25 pieces, lanes left
+# idle); K = 24 with B = 33 (a last block of 8 warps with one row); K = 128
+# at more ids; and K = 130, not a multiple of 4, so 130 byte pieces, five
+# passes of the warp.
+DEQUANT_SHAPES = [(64, 16, 16), (50, 13, 30), (512, 40, 64), (9, 1, 3),
+                  (300, 40, 100), (70, 33, 24), (1000, 70, 128), (300, 40, 130)]
+
+
+def _dequant_ids(rows, b, seed):
+    """Random ids with a duplicate and, from B = 4, the table's last three
+    rows."""
+    ids = np.random.default_rng(seed).integers(0, rows, b)
+    ids[0] = ids[-1]                                      # a duplicate
+    if b >= 4:
+        ids[1:4] = rows - 1 - np.arange(3)                # the last rows
+    return ids
 
 
 @pytest.mark.parametrize("rows,b,k", DEQUANT_SHAPES)
 def test_gather_dequant_plain_matches_pallas(jx, rows, b, k):
     q, scale = _int8_table(rows, k)
-    ids = np.random.default_rng(1).integers(0, rows, b).astype(np.int32)
-    ids[0] = ids[-1]                                      # a duplicate
+    ids = _dequant_ids(rows, b, 1).astype(np.int32)
     want = jx.eu.gather_dequant_rows(jx.jnp.asarray(q), jx.jnp.asarray(scale),
                                      jx.jnp.asarray(ids), interpret=True)
     got = embedding_update.gather_dequant_rows(
@@ -509,14 +528,31 @@ def test_cuda_gather_fma_matches_plain_and_repeats(cuda, rows, b, k, case):
                                atol=ATOL, rtol=1e-5)
 
 
+# Beyond the CPU cases: the MF step's 1,024 and 16,384 ids; at 700 ids,
+# K = 100 (25 4-byte pieces), K = 256 (64 4-byte pieces, two passes of the
+# warp) and K = 130 (130 byte pieces, five passes); and a table of more than
+# 2^31 bytes (16,778,240 x 128 int8, 2.15 GB) read at its last rows, so
+# 64-bit row offsets are needed.
 @pytest.mark.cuda
 @pytest.mark.parametrize("rows,b,k", DEQUANT_SHAPES + [(400_000, 1024, 128),
-                                                       (400_000, 16384, 128)])
+                                                       (400_000, 16384, 128),
+                                                       (5000, 700, 100),
+                                                       (5000, 700, 256),
+                                                       (5000, 700, 130),
+                                                       (2 ** 31 // 128 + 1024, 2048,
+                                                        128)])
 def test_cuda_gather_dequant_matches_plain(cuda, rows, b, k):
-    q, scale = (torch.as_tensor(a, device=cuda) for a in _int8_table(rows, k))
-    ids = torch.as_tensor(np.random.default_rng(2).integers(0, rows, b),
-                          device=cuda)
-    ids[0] = ids[-1]
+    if rows * k > 2 ** 31:                  # 2.15 GB: drawn on the card
+        gen = torch.Generator(device=cuda)
+        gen.manual_seed(2)
+        q = torch.randint(-127, 128, (rows, k), generator=gen, device=cuda,
+                          dtype=torch.int8)
+        scale = torch.rand(rows, 1, generator=gen, device=cuda) * 1e-2 + 1e-4
+        ids = torch.as_tensor(rows - 1 - np.random.default_rng(2).integers(0, 64, b),
+                              device=cuda)
+    else:
+        q, scale = (torch.as_tensor(a, device=cuda) for a in _int8_table(rows, k))
+        ids = torch.as_tensor(_dequant_ids(rows, b, 2), device=cuda)
     embedding_update.GATHER_DEQUANT_LAUNCHES.reset()
     got = embedding_update.gather_dequant_rows(q, scale, ids)
     torch.cuda.synchronize()
@@ -630,3 +666,37 @@ def test_cuda_flash_attention_edges_repeat(cuda, d, s, causal):
     assert flash_attention.FLASH_LAUNCHES.count() == 2
     assert torch.equal(got, again)
     torch.testing.assert_close(got, want, atol=1e-6, rtol=1e-5)
+
+
+# The redesigned per-example backward's edges: B = 1 and a ragged B, n below
+# one warp per negative, at 64, not a multiple of the 4 warps or the 8-deep
+# ring, 192, and the wrapper's most, 4,096 (past 48 KB of shared memory); K
+# not a multiple of 4 (the scalar path), 128 (one float4 panel) and 130;
+# theta = 0.05 so that some masks are 0; two calls compared bit for bit; and
+# the negatives one float off 16-byte alignment (the scalar path at K = 128).
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [30, 128, 130])
+@pytest.mark.parametrize("n", [5, 64, 67, 192, 4096])
+@pytest.mark.parametrize("b", [1, 37])
+def test_cuda_ccl_bwd_edges_repeat(cuda, b, n, k):
+    u, p, negs = _t(*_cf(b, n, k, seed=11), device=cuda)
+    stats = ccl_similarity.ccl_stats_plain(u, p, negs)
+    g = torch.tensor([0.37 / b], device=cuda)
+    theta = 0.05
+    cos = stats[4] * torch.rsqrt(stats[0] + 1e-12) * torch.rsqrt(stats[3] + 1e-12)
+    if b * n >= 64:
+        assert bool((cos > theta).any()) and bool((cos <= theta).any())
+    shifted = torch.empty(negs.numel() + 1, device=cuda)[1:].view(negs.shape)
+    shifted.copy_(negs)                                 # 4 bytes off alignment
+    ccl_similarity.BWD_LAUNCHES.reset()
+    got = ccl_similarity.ccl_bwd(u, p, negs, *stats, g, mu=1.3, theta=theta)
+    again = ccl_similarity.ccl_bwd(u, p, negs, *stats, g, mu=1.3, theta=theta)
+    unaligned = ccl_similarity.ccl_bwd(u, p, shifted, *stats, g, mu=1.3, theta=theta)
+    want = ccl_similarity.ccl_bwd_plain(u, p, negs, *stats, g, mu=1.3, theta=theta)
+    torch.cuda.synchronize()
+    assert ccl_similarity.BWD_LAUNCHES.count() == 3
+    for a, b_, c, want_a in zip(got, again, unaligned, want):
+        assert a.shape == want_a.shape
+        assert torch.equal(a, b_)                       # same bits every run
+        torch.testing.assert_close(a, want_a, atol=1e-6, rtol=1e-5)
+        torch.testing.assert_close(c, want_a, atol=1e-6, rtol=1e-5)

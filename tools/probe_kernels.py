@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Where the time of the port's redesigned kernels goes, on one CUDA card.
 
-    python3 tools/probe_kernels.py [--parts stats,bwd,flash,ties,segment_sum]
+    python3 tools/probe_kernels.py [--parts stats,bwd,bwd_mf,flash,ties,dequant,segment_sum]
+                                   [--earlier DIR]
 
 Each part prints one line per measurement with the card's name and power
 limit; the last line is the card alone.  Needs the card; imports nothing of
@@ -29,6 +30,13 @@ otherwise.
   u_hat staging, epilogue arithmetic and stores), both flushes; and the
   device time of each of its three passes from torch.profiler over 20
   calls.
+- ``bwd_mf``: ``csrc/ccl_bwd.cu`` (the per-example backward) at the MF
+  step's shape (B = 1,024, n = 64, K = 128, as in chip_smoke.py phase 3),
+  and copies of it built with ``-DPROBE_NO_LOADS`` (no negatives read),
+  ``-DPROBE_NO_STORES`` (no ``dn`` written) and both, beside
+  ``torch.add(u, p)`` and ``negs.clone()`` as stream references, both
+  flushes.  With ``--earlier``, the earlier checkout's kernel too, and the
+  two timed in alternation.
 - ``flash``: ``csrc/flash_attention.cu`` (fp32 on the SIMT pipes), copies
   of it without the FMAs of q k^T and without those of P v (garbage
   results; only their time is read), and the split-TF32 attempt
@@ -46,6 +54,17 @@ otherwise.
   gather (1,024 ids into a 20,980,000 x 128 int8 table) against
   ``q.index_select``, and the per-example stats kernel at the MF step's
   shape (B = 1,024, n = 64, K = 128) against ``einsum("bk,bnk->bn")``.
+- ``dequant``: the gather-dequant kernel at the int8 ``AMAZON`` step's three
+  gathers, on random int8 tables of the model's sizes and uniform ids: user
+  (1,024 ids into 20,980,000 x 128), positive (1,024 into 9,350,000 x 128)
+  and history (16,384 into 9,350,000 x 128), each checked bit for bit
+  against its plain version, then timed in alternation with
+  ``q.index_select`` and a one-element kernel (the floor of this way of
+  timing), as ``ties`` does, and with the unshipped variants under
+  ``csrc/attempts/`` (after the written flush only): several rows a warp and
+  streaming stores (``gather_dequant_rows.cu``), and warp tiles with 16-byte
+  pieces (``gather_dequant_tiles.cu``); with ``--earlier``, the earlier
+  checkout's kernel joins the alternation.
 - ``segment_sum``: the int8 ``AMAZON`` step (chip_smoke.py phase 8's
   configuration and dataset) profiled over 16-step windows with
   ``core/tiling.py::sorted_segment_sum`` as it is and with its earlier form,
@@ -53,6 +72,12 @@ otherwise.
   as ``sorted_segment_sum_before``), in the order current, earlier,
   earlier, current: ``segment_reduce``'s device time per step and the
   step's busy time.
+
+``--earlier DIR`` names the root of an earlier checkout of this repository
+(for example ``git archive`` of a parent commit unpacked under ``build/``):
+parts ``bwd_mf`` and ``dequant`` then also build that checkout's
+``ccl_bwd.cu`` and ``gather_dequant.cu`` and time them beside the current
+ones in the same run.
 """
 from __future__ import annotations
 
@@ -71,8 +96,20 @@ OUT_DIR = os.path.join(ROOT, "build", "probe_kernels")
 T, K, N_NEG = 8 * 1023, 960, 64
 ROWS, B = 400_000, 1024
 AMAZON_USERS = 20_980_000
-PARTS = ("stats", "bwd", "flash", "ties", "segment_sum")
+AMAZON_ITEMS = 9_350_000
+PARTS = ("stats", "bwd", "bwd_mf", "flash", "ties", "dequant", "segment_sum")
 ATTEMPTS = os.path.join(CSRC, "attempts")
+_BWD_MF_ARGS = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 3 + [ctypes.c_float] * 2 + [
+    ctypes.c_void_p]
+_DEQUANT_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+#: the unshipped gather-dequant variants that part ``dequant`` also times:
+#: each source under ``csrc/attempts/`` with the compiler flags (its
+#: switches) of each copy.
+DEQUANT_ATTEMPTS = {
+    "gather_dequant_rows": (("-DROWS_PER_WARP=2",), ("-DROWS_PER_WARP=4",),
+                            ("-DSTREAMING_STORES=1",)),
+    "gather_dequant_tiles": ((), ("-DSTREAMING_STORES=1",), ("-DMAX_PIECE=4", "-DTILE_ROWS=8")),
+}
 
 _COMPUTE = "    const float* su = ring + (c % STAGES) * STAGE_FLOATS;"
 _LOOP_END = "  cp_async_wait<0>();"
@@ -108,6 +145,35 @@ def bwd_variants(src: str) -> dict[str, tuple[str, tuple[str, ...]]]:
             "ccl_bwd_shared, loads only": (src, ("-DPROBE_NO_COMPUTE",)),
             "ccl_bwd_shared, compute only": (src, ("-DPROBE_NO_LOADS",)),
             "ccl_bwd_shared, neither": (src, ("-DPROBE_NO_LOADS", "-DPROBE_NO_COMPUTE"))}
+
+
+def bwd_mf_variants(src: str) -> dict[str, tuple[str, tuple[str, ...]]]:
+    """The per-example backward's source as it is, without its negatives
+    loads, without its ``dn`` stores, and without either."""
+    for macro in ("PROBE_NO_LOADS", "PROBE_NO_STORES"):
+        if macro not in src:
+            raise ValueError(f"ccl_bwd.cu no longer reads {macro}")
+    return {"ccl_bwd": (src, ()),
+            "ccl_bwd, no negatives loads": (src, ("-DPROBE_NO_LOADS",)),
+            "ccl_bwd, no dn stores": (src, ("-DPROBE_NO_STORES",)),
+            "ccl_bwd, neither": (src, ("-DPROBE_NO_LOADS", "-DPROBE_NO_STORES"))}
+
+
+def earlier_source(earlier: str | None, name: str) -> dict[str, tuple[str, tuple[str, ...]]]:
+    """``{label: (source, ())}`` for ``csrc/<name>.cu`` of the earlier
+    checkout at ``earlier``, or nothing when none was given."""
+    if not earlier:
+        return {}
+    with open(os.path.join(earlier, "src", "repro_torch", "csrc", f"{name}.cu")) as f:
+        return {f"{name} (earlier checkout)": (f.read(), ())}
+
+
+def bind(lib: ctypes.CDLL, symbol: str, argtypes) -> ctypes._CFuncPtr:
+    """``lib.symbol`` with its argument types and an int result."""
+    fn = getattr(lib, symbol)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def build(variants: dict[str, tuple[str, tuple[str, ...]]], tag: str) -> dict[str, ctypes.CDLL]:
@@ -298,19 +364,20 @@ def part_bwd(dev, timer: Timer, card: str) -> None:
               f"a written flush) | {card}", flush=True)
 
 
-def alternate(timer: Timer, kernel, library, reps: int = 100):
-    """Timings (ms) of ``kernel`` and ``library`` taken in the order kernel,
-    library, library, kernel, ``reps`` times, each after the written flush."""
+def alternate(timer: Timer, calls: dict, reps: int = 100, evict=None) -> dict:
+    """Timings (ms) of each of ``calls`` taken in their order and then in the
+    reverse order (kernel, library, library, kernel for two), ``reps``
+    times, each after ``evict()`` (default: the written flush)."""
+    evict = evict or timer.flush.zero_
     for _ in range(3):
-        kernel()
-        library()
-    ks, ls = [], []
+        for fn in calls.values():
+            fn()
+    times = {name: [] for name in calls}
+    order = list(calls) + list(calls)[::-1]
     for _ in range(reps):
-        ks.append(timer.once(kernel, timer.flush.zero_))
-        ls.append(timer.once(library, timer.flush.zero_))
-        ls.append(timer.once(library, timer.flush.zero_))
-        ks.append(timer.once(kernel, timer.flush.zero_))
-    return ks, ls
+        for name in order:
+            times[name].append(timer.once(calls[name], evict))
+    return times
 
 
 def spread(xs) -> str:
@@ -393,18 +460,119 @@ def part_ties(dev, timer: Timer, card: str) -> None:
                        dtype=torch.int8)
     scale = torch.rand(AMAZON_USERS, 1, generator=gen, device=dev) * 1e-2 + 1e-4
     ids = torch.randint(0, AMAZON_USERS, (B,), generator=gen, device=dev)
-    ks, ls = alternate(timer, lambda: embedding_update.gather_dequant_rows(q8, scale, ids),
-                       lambda: q8.index_select(0, ids))
+    ks, ls = alternate(timer, {
+        "kernel": lambda: embedding_update.gather_dequant_rows(q8, scale, ids),
+        "library": lambda: q8.index_select(0, ids)}).values()
     print(f"tie gather_dequant (user gather, {B} ids into {AMAZON_USERS} x 128 int8): "
           f"kernel {spread(ks)}; q.index_select {spread(ls)} | {card}", flush=True)
     del q8, scale
     u = 0.1 * torch.randn(B, 128, generator=gen, device=dev)
     p = 0.1 * torch.randn(B, 128, generator=gen, device=dev)
     negs = 0.1 * torch.randn(B, N_NEG, 128, generator=gen, device=dev)
-    ks, ls = alternate(timer, lambda: ccl_similarity.ccl_stats(u, p, negs),
-                       lambda: torch.einsum("bk,bnk->bn", u, negs))
+    ks, ls = alternate(timer, {
+        "kernel": lambda: ccl_similarity.ccl_stats(u, p, negs),
+        "library": lambda: torch.einsum("bk,bnk->bn", u, negs)}).values()
     print(f"tie ccl_stats (B={B}, n={N_NEG}, K=128): kernel {spread(ks)}; "
           f"einsum {spread(ls)} | {card}", flush=True)
+
+
+def part_bwd_mf(dev, timer: Timer, card: str, earlier: str | None) -> None:
+    """The per-example backward and its copies without loads or stores, and
+    the earlier checkout's kernel where one is given."""
+    import torch
+    from repro_torch.kernels import ccl_similarity
+    variants = bwd_mf_variants(read_source("ccl_bwd"))
+    variants.update(earlier_source(earlier, "ccl_bwd"))
+    libs = build(variants, "bwd_mf")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    u = 0.1 * torch.randn(B, 128, generator=gen, device=dev)
+    p = 0.1 * torch.randn(B, 128, generator=gen, device=dev)
+    negs = 0.1 * torch.randn(B, N_NEG, 128, generator=gen, device=dev)
+    stats = ccl_similarity.ccl_stats_plain(u, p, negs)
+    g = torch.ones(1, device=dev)
+    want = ccl_similarity.ccl_bwd_plain(u, p, negs, *stats, g, mu=1.0, theta=0.0)
+    outs = [torch.empty_like(u), torch.empty_like(p), torch.empty_like(negs)]
+    stream = torch.cuda.current_stream().cuda_stream
+    calls = {}
+    for name, lib in libs.items():
+        fn = bind(lib, "ccl_bwd", _BWD_MF_ARGS)
+        args = (u.data_ptr(), p.data_ptr(), negs.data_ptr(), *(x.data_ptr() for x in stats),
+                g.data_ptr(), *(o.data_ptr() for o in outs), B, N_NEG, 128, 1.0, 0.0, stream)
+        if fn(*args) != 0:
+            raise RuntimeError(f"{name}: launch failed")
+        torch.cuda.synchronize()
+        if "," not in name:                     # the whole kernels: check them
+            for o, w in zip(outs, want):
+                if not bool(((o - w).abs() <= 1e-6 + 1e-5 * w.abs()).all()):
+                    raise AssertionError(f"{name} disagrees with ccl_bwd_plain")
+        calls[name] = lambda fn=fn, args=args: fn(*args)
+    calls["torch.add(u, p)"] = lambda: torch.add(u, p)
+    calls["negs.clone()"] = lambda: negs.clone()
+    both_flushes(calls, timer, card)
+    if earlier:
+        pair = {n: calls[n] for n in ("ccl_bwd", "ccl_bwd (earlier checkout)")}
+        for name, ts in alternate(timer, pair).items():
+            print(f"alternated {name} (B={B}, n={N_NEG}, K=128): {spread(ts)} | {card}",
+                  flush=True)
+
+
+def part_dequant(dev, timer: Timer, card: str, earlier: str | None) -> None:
+    """#5 at the int8 AMAZON step's three gathers, in alternation with
+    q.index_select, a one-element kernel and the earlier checkout's kernel
+    where one is given."""
+    import torch
+    from repro_torch.kernels import embedding_update
+    variants = {}
+    for attempt, copies in DEQUANT_ATTEMPTS.items():
+        with open(os.path.join(ATTEMPTS, attempt + ".cu")) as f:
+            src = f.read()
+        variants.update({f"attempt {attempt} {' '.join(flags)}".strip(): (src, flags)
+                         for flags in copies})
+    variants.update(earlier_source(earlier, "gather_dequant"))
+    fns = {name: bind(lib, "gather_dequant_rows", _DEQUANT_ARGS)
+           for name, lib in build(variants, "dequant").items()}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    one = torch.zeros(1, device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    for table, rows in (("user", AMAZON_USERS), ("item", AMAZON_ITEMS)):
+        q8 = torch.randint(-127, 128, (rows, 128), generator=gen, device=dev,
+                           dtype=torch.int8)
+        scale = torch.rand(rows, 1, generator=gen, device=dev) * 1e-2 + 1e-4
+        cases = ([("user", B)] if table == "user"
+                 else [("positive", B), ("history", 16 * B)])
+        for case, n_ids in cases:
+            ids = torch.randint(0, rows, (n_ids,), generator=gen, device=dev)
+            want = embedding_update.gather_dequant_rows_plain(q8, scale, ids)
+            got = embedding_update.gather_dequant_rows(q8, scale, ids)
+            if not torch.equal(got, want):
+                raise AssertionError(f"gather_dequant {case}: differs from its plain version")
+            calls = {"kernel": lambda q8=q8, scale=scale, ids=ids:
+                     embedding_update.gather_dequant_rows(q8, scale, ids)}
+            for name, fn in fns.items():
+                out = torch.empty_like(want)
+                args = (q8.data_ptr(), scale.data_ptr(), ids.data_ptr(), out.data_ptr(),
+                        n_ids, 128, stream)
+                if fn(*args) != 0:
+                    raise RuntimeError(f"{name}: launch failed")
+                torch.cuda.synchronize()
+                if not torch.equal(out, want):
+                    raise AssertionError(f"{name} differs from the plain version")
+                calls[name] = lambda fn=fn, args=args, out=out: fn(*args)
+            calls["q.index_select"] = lambda q8=q8, ids=ids: q8.index_select(0, ids)
+            calls["one-element kernel"] = lambda: one.add_(1)
+            for flush, evict in (("written", None), ("read", timer.flush.sum)):
+                if flush == "read":     # the kernels of the table only
+                    calls = {n: fn for n, fn in calls.items()
+                             if not n.startswith("attempt")}
+                times = alternate(timer, calls, evict=evict)
+                print(f"dequant {case} gather ({n_ids} ids into {rows} x 128 int8, bit for "
+                      f"bit), after a {flush} flush: "
+                      + "; ".join(f"{name} {spread(ts)}" for name, ts in times.items())
+                      + f" | {card}", flush=True)
+        del q8, scale
+        torch.cuda.empty_cache()
 
 
 def part_segment_sum(dev, card: str) -> None:
@@ -458,7 +626,11 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parts", default=",".join(PARTS),
                     help=f"comma-separated subset of {','.join(PARTS)}")
-    parts = ap.parse_args().parts.split(",")
+    ap.add_argument("--earlier", default=None,
+                    help="root of an earlier checkout whose ccl_bwd.cu and "
+                         "gather_dequant.cu parts bwd_mf and dequant also time")
+    args = ap.parse_args()
+    parts = args.parts.split(",")
     unknown = set(parts) - set(PARTS)
     if unknown:
         ap.error(f"unknown parts {sorted(unknown)}")
@@ -472,10 +644,14 @@ def main() -> int:
         part_stats(dev, timer, card)
     if "bwd" in parts:
         part_bwd(dev, timer, card)
+    if "bwd_mf" in parts:
+        part_bwd_mf(dev, timer, card, args.earlier)
     if "flash" in parts:
         part_flash(dev, timer, card)
     if "ties" in parts:
         part_ties(dev, timer, card)
+    if "dequant" in parts:
+        part_dequant(dev, timer, card, args.earlier)
     if "segment_sum" in parts:
         del timer
         torch.cuda.empty_cache()
