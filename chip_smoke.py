@@ -17,7 +17,8 @@ smollm-360m's attention shape.  Phases, one line each:
   3. each kernel against its plain PyTorch version at the main path's shapes
      (B=1,024, n=64, K=128; the row update takes 2,048 ids with duplicates
      into the 400,000-row table): max abs error against the stated
-     tolerance (the backward also called twice and compared bit for bit),
+     tolerance (the stats and the backward also called twice and compared
+     bit for bit),
      and the median of 30 CUDA-event timings of the kernel, the
      plain version and, where one PyTorch call computes the same function,
      that call (``library_ms``), each with the L2 cache flushed first, and
@@ -73,7 +74,23 @@ smollm-360m's attention shape.  Phases, one line each:
  13. an LM restart: smollm-360m at full width and 4 layers, a vocab-tile
      refresh every 4 steps, 8 steps uninterrupted and again with a
      checkpoint every 4 steps and a failure injected at step 6; every
-     parameter, moment and tile leaf must be identical.
+     parameter, moment and tile leaf must be identical;
+ 14. full-catalog evaluation through ``mf.topk_all_items`` (a running
+     top-20 merged with each 65,536-item chunk, so the (users, items) score
+     matrix never exists): ``MF_100M_PALLAS`` in its initial state and as
+     phases 5-7 trained it, all 4,096 users of the dataset over all 400,000
+     items with their training positives excluded, in batches of 1,024:
+     Recall@20 and NDCG@20 (finite, in [0, 1]) and ms per 1,024 users; on
+     256 users the ids must equal the stable top-20 of ``scores_all_items``
+     at the same chunk, and the metrics those of the dense route
+     (``metrics.evaluate_ranking``) to 1e-6; ``AMAZON`` with the int8 tables
+     phase 8 trained, the first batch's 1,024 users over all 9.35M items,
+     dequantized chunk by chunk: ms per 1,024 users and the call's peak
+     device memory, which must stay far below the 38 GB score matrix, with
+     the same id check on 16 users; a tie check (integer embeddings,
+     ``similarity="dot"``, a chunk that does not divide the catalog) against
+     numpy's stable argsort; and no launch of the port's kernels (the
+     evaluation runs none).
 
 Then it prints the kernels' JSON line, the card line, and as its last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
@@ -108,6 +125,10 @@ DEQUANT_IDS = (1024, 16384)     # the sizes of AMAZON's user and history gathers
 RTOL, ATOL = 1e-5, 1e-6      # |kernel - plain| <= ATOL + RTOL * |plain|
 LM_B, LM_S, LM_STEPS, LM_WINDOW, LM_LR = 8, 1024, 32, 8, 1e-3
 LM_RESTART_LAYERS, LM_RESTART_STEPS = 4, 8
+#: phase 14: top-20 evaluation in chunks of 65,536 items (a chunk that
+#: divides neither 400,000 nor 9,350,000), checked against the dense scores
+#: on the first EVAL_CHECK_USERS users (16 on the 9.35M-item catalog).
+EVAL_K, EVAL_CHUNK, EVAL_CHECK_USERS = 20, 65_536, 256
 #: the attention path's check against the model's chunked attention, relative
 #: to the output's largest element: two fp32 orders of a softmax whose logits
 #: are of order 16 at this init (wq's fan-in is Hq, as in the reference), so
@@ -567,6 +588,136 @@ def lm_phases(dev, card: str, flush, counters) -> list:
     return kernels
 
 
+def check_topk(ids, num_items: int, exclude=None) -> None:
+    """Raise unless ``ids`` are ``EVAL_K`` distinct in-range item ids per
+    row, none of them excluded."""
+    import torch
+    assert ids.shape[1] == EVAL_K and ids.dtype == torch.int64, (ids.shape, ids.dtype)
+    assert int(ids.min()) >= 0 and int(ids.max()) < num_items
+    srt = torch.sort(ids, dim=1).values
+    assert bool((srt[:, 1:] != srt[:, :-1]).all()), "an id repeats within a row"
+    if exclude is not None:
+        assert not bool(torch.take_along_dim(exclude, ids, dim=1).any()), \
+            "an excluded item was ranked"
+
+
+def eval_phase(dev, card: str, ds, mf_trained, amazon, amazon_users, counters) -> None:
+    """Phase 14: full-catalog top-20 evaluation of the trained MF models."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.heat_mf import MF_100M_PALLAS
+    from repro_torch.core import metrics, mf
+    from repro_torch.optim import quantization as qz
+    assert not torch.backends.cuda.matmul.allow_tf32, "TF32 would change the scores"
+    for c in counters:
+        c.reset()
+
+    # ---- MF_100M_PALLAS: every user over the 400,000 items -----------------
+    n_users, n_items = ds.num_users, ds.num_items
+    train_np = ds.train_mask()
+    train = torch.from_numpy(train_np).to(dev)
+    test = torch.from_numpy(ds.test_mask()).to(dev)
+    del train_np
+    users = torch.arange(n_users, device=dev)
+    states = {"initial": mf.init_mf(0, MF_100M_PALLAS, device=dev).params,  # train_mf's init
+              "trained": mf.MFParams(mf_trained.user_table.to(dev),
+                                     mf_trained.item_table.to(dev), None)}
+    mf.topk_all_items(states["initial"], users[:B], EVAL_K, item_chunk=EVAL_CHUNK,
+                      exclude_mask=train[:B])                       # warm-up
+    lines, top = [], {}
+    for label, params in states.items():
+        ids, times = [], []
+        for u0 in range(0, n_users, B):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ids.append(mf.topk_all_items(params, users[u0:u0 + B], EVAL_K,
+                                         item_chunk=EVAL_CHUNK, exclude_mask=train[u0:u0 + B]))
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        ids = top[label] = torch.cat(ids)
+        check_topk(ids, n_items, train)
+        rec, ndcg = (float(f(ids, test)) for f in (metrics.recall_at_k, metrics.ndcg_at_k))
+        assert all(math.isfinite(x) and 0.0 <= x <= 1.0 for x in (rec, ndcg)), (rec, ndcg)
+        lines.append(f"{label}: Recall@{EVAL_K} {rec:.6f}, NDCG@{EVAL_K} {ndcg:.6f}, "
+                     f"{statistics.median(times):.2f} ms per {B} users (median of "
+                     f"{len(times)} batches: {', '.join(f'{t:.2f}' for t in times)})")
+    moved = int((top["initial"] != top["trained"]).any(1).sum())
+
+    # The chunked top-k against the stable top-k of the same chunks' scores
+    # (the same products, so the same bits), and its metrics against the
+    # dense route's, on the first users.
+    params, sub = states["trained"], users[:EVAL_CHECK_USERS]
+    got = mf.topk_all_items(params, sub, EVAL_K, item_chunk=EVAL_CHUNK,
+                            exclude_mask=train[:EVAL_CHECK_USERS])
+    scores = mf.scores_all_items(params, sub, item_chunk=EVAL_CHUNK)
+    want = metrics.stable_topk(torch.where(train[:EVAL_CHECK_USERS], float("-inf"), scores),
+                               EVAL_K)
+    assert torch.equal(got, want), "chunked top-k differs from the stable top-k of the scores"
+    dense = metrics.evaluate_ranking(mf.scores_all_items(params, sub),
+                                     train[:EVAL_CHECK_USERS], test[:EVAL_CHECK_USERS], EVAL_K)
+    sub_test = test[:EVAL_CHECK_USERS]
+    d_rec = abs(float(metrics.recall_at_k(got, sub_test)) - float(dense[f"recall@{EVAL_K}"]))
+    d_ndcg = abs(float(metrics.ndcg_at_k(got, sub_test)) - float(dense[f"ndcg@{EVAL_K}"]))
+    assert d_rec <= 1e-6 and d_ndcg <= 1e-6, (d_rec, d_ndcg)
+    print(f"[14 eval] MF_100M_PALLAS, all {n_users} users x {n_items} items, training "
+          f"positives excluded, top-{EVAL_K} in chunks of {EVAL_CHUNK}: " + "; ".join(lines)
+          + f"; the trained top-{EVAL_K} differs from the initial one for {moved} of "
+          f"{n_users} users; on {EVAL_CHECK_USERS} users ids equal to the stable top-{EVAL_K} of "
+          f"scores_all_items at the same chunk, metrics against the dense route: "
+          f"|d recall| {d_rec:.1e}, |d ndcg| {d_ndcg:.1e} | {card}", flush=True)
+    del states, params, train, test, scores, dense, got, want, top
+    torch.cuda.empty_cache()
+
+    # ---- AMAZON int8: the first batch's users over the 9.35M items ---------
+    params8 = mf.MFParams(qz.QuantizedTable(*(x.to(dev) for x in amazon.user_table)),
+                          qz.QuantizedTable(*(x.to(dev) for x in amazon.item_table)), None)
+    users8 = amazon_users.to(dev)
+    n_items8 = qz.num_rows(params8.item_table)
+    sub = users8[:16]
+    got = mf.topk_all_items(params8, sub, EVAL_K, item_chunk=EVAL_CHUNK)
+    want = metrics.stable_topk(mf.scores_all_items(params8, sub, item_chunk=EVAL_CHUNK), EVAL_K)
+    assert torch.equal(got, want), "int8 chunked top-k differs from the stable top-k"
+    del got, want
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    ids8 = mf.topk_all_items(params8, users8, EVAL_K, item_chunk=EVAL_CHUNK)
+    torch.cuda.synchronize()
+    ms8 = 1e3 * (time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    check_topk(ids8, n_items8)
+    dense_gb = users8.numel() * n_items8 * 4 / 1e9
+    above = (peak - resident) / 1e9
+    assert above < dense_gb / 8, f"the call took {above:.2f} GB over its inputs"
+    print(f"[14 eval] AMAZON int8, the first batch's {users8.numel()} users x {n_items8} "
+          f"items, top-{EVAL_K} in chunks of {EVAL_CHUNK} dequantized one at a time: "
+          f"{ms8:.1f} ms per {users8.numel()} users; peak device memory {peak / 1e9:.2f} GB, "
+          f"{above:.3f} GB above the tables it scores (the (users, items) fp32 score matrix "
+          f"would take {dense_gb:.1f} GB); ids on 16 users equal to the stable top-{EVAL_K} "
+          f"of scores_all_items at the same chunk | {card}", flush=True)
+    del params8, users8, ids8
+    torch.cuda.empty_cache()
+
+    # ---- ties: integer embeddings, exact dot products ----------------------
+    r = np.random.default_rng(14)
+    items = r.integers(-2, 3, (200_003, 8)).astype(np.float32)
+    items[100_000] = items[7]                                       # a sure tie
+    tie_users = r.integers(-2, 3, (64, 8)).astype(np.float32)
+    want = np.argsort(-(tie_users @ items.T), axis=1, kind="stable")[:, :EVAL_K]
+    got = mf.topk_all_items(mf.MFParams(torch.from_numpy(tie_users).to(dev),
+                                        torch.from_numpy(items).to(dev), None),
+                            torch.arange(64, device=dev), EVAL_K, similarity="dot",
+                            item_chunk=EVAL_CHUNK)
+    assert np.array_equal(got.cpu().numpy(), want), "ties not broken by the lowest id"
+    launches = {c.name: c.count() for c in counters}
+    assert not any(launches.values()), launches
+    print(f"[14 eval] ties: 64 integer users x 200,003 integer items, dot, chunks of "
+          f"{EVAL_CHUNK}: ids equal to numpy's stable argsort; the port's kernels "
+          f"launched in phase 14: {launches} | {card}", flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -584,6 +735,7 @@ def main() -> int:
         flash_attention,
         ops,
     )
+    from repro_torch.optim import quantization as qz
     from repro_torch.train import checkpoint as ckpt
     from repro_torch.train import trainer
 
@@ -611,6 +763,8 @@ def main() -> int:
 
     stats = ccl_similarity.ccl_stats(u, p, negs)
     err = max_err(stats, ccl_similarity.ccl_stats_plain(u, p, negs))
+    assert all(torch.equal(a, b_) for a, b_ in zip(
+        stats, ccl_similarity.ccl_stats(u, p, negs))), "ccl_stats: two calls differ"
     nbytes = 4 * (2 * B * K + B * N_NEG * K) + 4 * (3 * B + 2 * B * N_NEG)
     b_ms, b_by = bound(nbytes, 2 * B * K * (3 + 2 * N_NEG))
     kernels.append(dict(
@@ -678,7 +832,7 @@ def main() -> int:
     for kd in kernels:
         lib = ("n/a" if kd["library_ms"] is None
                else "%.4f ms" % kd["library_ms"])
-        same = " same bits on two calls;" if kd["name"] == "ccl_bwd" else ""
+        same = " same bits on two calls;" if kd["name"] in ("ccl_stats", "ccl_bwd") else ""
         print(f"[3 kernel] {kd['name']}:{same} max abs err {kd['max_abs_err']:.3e} "
               f"(tol {ATOL:g} + {RTOL:g}*|plain|); {kd['ms']:.4f} ms kernel, "
               f"{kd['plain_ms']:.4f} ms plain, bound {kd['bound_ms']:.4f} ms "
@@ -795,6 +949,9 @@ def main() -> int:
     # ---- 7: where a steady step's time goes --------------------------------
     print(profile_window(executor, state, STEPS + WINDOW, WINDOW, t_steady,
                          watch="segment_reduce"), flush=True)
+    # phase 14 evaluates these tables; they wait on the host meanwhile
+    mf_trained = mf.MFParams(state.params.user_table.cpu(), state.params.item_table.cpu(),
+                             None)
     del state, executor, body, base, runs, s0, s1
 
     # ---- 8: AMAZON with int8 tables ----------------------------------------
@@ -878,6 +1035,11 @@ def main() -> int:
             del kd["n_unique"], kd["max_id"]
             kd["launches"] = launches8["gather_dequant"]
             kernels.append(kd)
+    # phase 14 evaluates these tables for the first batch's users; they wait
+    # on the host meanwhile
+    amazon = mf.MFParams(*(qz.QuantizedTable(*(x.cpu() for x in t))
+                           for t in (tables.user_table, tables.item_table)), None)
+    amazon_users = batch.user_ids.cpu()
     del state, executor, body, dds8, ds8, tables, batch, cases, table, ids
     torch.cuda.empty_cache()
 
@@ -909,9 +1071,10 @@ def main() -> int:
           f"leaves identical bit for bit ({', '.join(names)}); {t_restart:.1f} s "
           f"| {card}", flush=True)
 
-    del clean, healed, ds, dds
+    del clean, healed, dds
     torch.cuda.empty_cache()
     kernels += lm_phases(dev, card, flush, counters)
+    eval_phase(dev, card, ds, mf_trained, amazon, amazon_users, counters)
 
     print(json.dumps({"kernels": kernels}))
     print(card)

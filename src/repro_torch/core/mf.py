@@ -35,6 +35,7 @@ import torch
 from repro_torch.core import aggregation as agg
 from repro_torch.core import samplers
 from repro_torch.core.engine import SampleContext, StepEngine, resolve_engine
+from repro_torch.core.metrics import stable_topk
 from repro_torch.optim import quantization as qz
 
 _M64 = (1 << 64) - 1
@@ -305,3 +306,85 @@ def make_scan_body(cfg: MFConfig, batch_fn, seed: int, *,
                                cfg, engine=engine)
 
     return body
+
+
+def _score_item_block(u: torch.Tensor, block: torch.Tensor,
+                      similarity: str) -> torch.Tensor:
+    """(B, K) users x (C, K) item rows -> (B, C) scores; cosine divides by
+    the user norms, then by the item norms, each clipped at 1e-12, in the
+    reference's order."""
+    s = u @ block.T
+    if similarity == "cosine":
+        un = torch.sqrt((u * u).sum(-1, keepdim=True)).clamp_min(1e-12)
+        bn = torch.sqrt((block * block).sum(-1)).clamp_min(1e-12)
+        s = s / un / bn[None, :]
+    return s
+
+
+@torch.no_grad()
+def scores_all_items(params: MFParams, user_ids: torch.Tensor,
+                     similarity: str = "cosine", *,
+                     item_chunk: Optional[int] = None) -> torch.Tensor:
+    """(B, I) scores for evaluation (Recall@K / NDCG@K).
+
+    ``item_chunk`` computes the matrix block by block (bounded matmul
+    temporaries; the last block may be shorter); the result is still
+    (B, I) — use :func:`topk_all_items` when only a top-k is needed and
+    (B, I) must never exist at once."""
+    u = qz.gather_rows(params.user_table, user_ids)
+    t = params.item_table
+    n = qz.num_rows(t)
+    if not item_chunk or item_chunk >= n:
+        return _score_item_block(u, qz.dequantize_table(t), similarity)
+    return torch.cat([_score_item_block(u, qz.slice_rows(t, s, s + item_chunk),
+                                        similarity)
+                      for s in range(0, n, item_chunk)], dim=1)
+
+
+@torch.no_grad()
+def topk_all_items(params: MFParams, user_ids: torch.Tensor, k: int, *,
+                   similarity: str = "cosine",
+                   item_chunk: Optional[int] = None,
+                   exclude_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Top-k item ids (int64) per user over the full catalog, chunked.
+
+    A running (B, k) top-k is merged with each (B, item_chunk) score block
+    (an int8 table is dequantized one block at a time), so the full (B, I)
+    score matrix is never materialized: at paper scale (9.35M items) it
+    would take 38 GB for 1,024 users.  ``exclude_mask`` (B, I) bool masks
+    training positives (sliced per block, never copied whole).
+    ``k > num_items`` is clamped: the result is (B, min(k, I)).
+
+    Ties go to the lower item id, as the reference's ``lax.top_k`` orders
+    them: the running best sits before each block in the merge, and
+    :func:`~repro_torch.core.metrics.stable_topk` prefers the earlier
+    position.  Rows with fewer than k unmasked items come back as the
+    reference returns them: padded with id 0 on the chunked path (its
+    running best starts as k copies of id 0 at -inf), with the masked ids,
+    lowest first, on the dense path (``item_chunk`` None or at least the
+    catalog)."""
+    u = qz.gather_rows(params.user_table, user_ids)
+    t = params.item_table
+    num_items = qz.num_rows(t)
+    k = min(int(k), num_items)
+    c = item_chunk or num_items
+    if c >= num_items:
+        sc = _score_item_block(u, qz.dequantize_table(t), similarity)
+        if exclude_mask is not None:
+            sc = torch.where(exclude_mask, float("-inf"), sc)
+        return stable_topk(sc, k)
+
+    b = u.shape[0]
+    best_s = torch.full((b, k), float("-inf"), dtype=u.dtype, device=u.device)
+    best_i = torch.zeros((b, k), dtype=torch.int64, device=u.device)
+    for s0 in range(0, num_items, c):
+        sc = _score_item_block(u, qz.slice_rows(t, s0, s0 + c), similarity)
+        if exclude_mask is not None:
+            sc = torch.where(exclude_mask[:, s0:s0 + c], float("-inf"), sc)
+        pos = stable_topk(torch.cat([best_s, sc], dim=1), k)
+        from_best = pos < k
+        best_s = torch.where(from_best, best_s.gather(1, pos.clamp_max(k - 1)),
+                             sc.gather(1, (pos - k).clamp_min(0)))
+        best_i = torch.where(from_best, best_i.gather(1, pos.clamp_max(k - 1)),
+                             s0 + pos - k)
+    return best_i

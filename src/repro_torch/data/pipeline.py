@@ -32,6 +32,24 @@ class CFDataset:
     train_pos: np.ndarray       # (num_users, max_train) int32, -1 padded
     test_pos: np.ndarray        # (num_users, max_test) int32, -1 padded
 
+    def train_mask(self) -> np.ndarray:
+        """(num_users, num_items) bool: True where a user has a training
+        positive."""
+        return self._mask(self.train_pos)
+
+    def test_mask(self) -> np.ndarray:
+        """(num_users, num_items) bool: True where a user has a test
+        positive."""
+        return self._mask(self.test_pos)
+
+    def _mask(self, pos: np.ndarray) -> np.ndarray:
+        m = np.zeros((self.num_users, self.num_items), bool)
+        u = np.repeat(np.arange(self.num_users), pos.shape[1])
+        i = pos.reshape(-1)
+        valid = i >= 0
+        m[u[valid], i[valid]] = True
+        return m
+
 
 def synth_cf_dataset(num_users: int, num_items: int, *, seed: int = 0,
                      interactions_per_user: int = 20, num_clusters: int = 16,

@@ -103,8 +103,8 @@ def ccl_stats(user, pos, negs):
     _build.check_operands("ccl_stats", user.device,
                           [(t, torch.float32) for t in (user, pos, negs)])
     if k > 12_288:
-        raise ValueError(f"ccl_stats: K={k} exceeds the kernel's 48 KB of "
-                         "shared memory")
+        raise ValueError(f"ccl_stats: K={k} exceeds the largest K the kernel "
+                         "takes, 12,288")
     uu, pp, up = (torch.empty((b, 1), device=user.device) for _ in range(3))
     nn, un = (torch.empty((b, n), device=user.device) for _ in range(2))
     vec = int(k % 4 == 0 and user.data_ptr() % 16 == 0

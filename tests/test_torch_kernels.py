@@ -700,3 +700,55 @@ def test_cuda_ccl_bwd_edges_repeat(cuda, b, n, k):
         assert torch.equal(a, b_)                       # same bits every run
         torch.testing.assert_close(a, want_a, atol=1e-6, rtol=1e-5)
         torch.testing.assert_close(c, want_a, atol=1e-6, rtol=1e-5)
+
+
+# The redesigned per-example stats kernel's edges: B = 1 and a ragged B; n
+# below one 16-negative warp group, at 64, not a multiple of 16, 192 and the
+# backward's most, 4,096; K not a multiple of 4 (the scalar path), 128 (one
+# float4 panel) and 130 (five scalar panels); two calls compared bit for
+# bit; and the negatives one float off 16-byte alignment (the scalar path at
+# K = 128).  The inputs are 0.1 x unit normal, the scale of the MF tables
+# (init std 0.1) at which chip_smoke.py holds the kernel to 1e-6 +
+# 1e-5*|plain|: at unit scale an fp32 sum of 128 products near 11 is off by
+# about 1e-5 in any order, so a near-zero u.n_j could not meet 1e-6.
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [30, 128, 130])
+@pytest.mark.parametrize("n", [5, 64, 67, 192, 4096])
+@pytest.mark.parametrize("b", [1, 37])
+def test_cuda_ccl_stats_edges_repeat(cuda, b, n, k):
+    u, p, negs = (0.1 * x for x in _t(*_cf(b, n, k, seed=13), device=cuda))
+    shifted = torch.empty(negs.numel() + 1, device=cuda)[1:].view(negs.shape)
+    shifted.copy_(negs)                                 # 4 bytes off alignment
+    ccl_similarity.STATS_LAUNCHES.reset()
+    got = ccl_similarity.ccl_stats(u, p, negs)
+    again = ccl_similarity.ccl_stats(u, p, negs)
+    unaligned = ccl_similarity.ccl_stats(u, p, shifted)
+    want = ccl_similarity.ccl_stats_plain(u, p, negs)
+    torch.cuda.synchronize()
+    assert ccl_similarity.STATS_LAUNCHES.count() == 3
+    for a, b_, c, want_a in zip(got, again, unaligned, want):
+        assert a.shape == want_a.shape
+        assert torch.equal(a, b_)                       # same bits every run
+        torch.testing.assert_close(a, want_a, atol=1e-6, rtol=1e-5)
+        torch.testing.assert_close(c, want_a, atol=1e-6, rtol=1e-5)
+
+
+# The chunked top-k on the card, where cuBLAS picks the product's algorithm
+# by shape: integer embeddings scored with similarity="dot" are exact in any
+# order and tie often (a duplicated item row ties for sure), so the ids must
+# equal numpy's stable argsort, at chunks that do not divide the catalog
+# and on the dense path.
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [997, 4096, None])
+def test_cuda_topk_ties_match_stable_argsort(cuda, chunk):
+    from repro_torch.core import mf
+    r = np.random.default_rng(21)
+    items = r.integers(-2, 3, (10_007, 8)).astype(np.float32)
+    items[5000] = items[3]
+    users = r.integers(-2, 3, (64, 8)).astype(np.float32)
+    params = mf.MFParams(*_t(users, items, device=cuda), None)
+    want = np.argsort(-(users @ items.T), axis=1, kind="stable")[:, :50]
+    got = mf.topk_all_items(params, torch.arange(64, device=cuda), 50,
+                            similarity="dot", item_chunk=chunk)
+    assert got.device.type == "cuda"
+    np.testing.assert_array_equal(got.cpu().numpy(), want)

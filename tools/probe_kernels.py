@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Where the time of the port's redesigned kernels goes, on one CUDA card.
 
-    python3 tools/probe_kernels.py [--parts stats,bwd,bwd_mf,flash,ties,dequant,segment_sum]
-                                   [--earlier DIR]
+    python3 tools/probe_kernels.py [--parts stats,bwd,bwd_mf,stats_mf,flash,ties,dequant,
+                                            segment_sum,launches,step_stats] [--earlier DIR]
 
 Each part prints one line per measurement with the card's name and power
 limit; the last line is the card alone.  Needs the card; imports nothing of
@@ -37,6 +37,16 @@ otherwise.
   ``torch.add(u, p)`` and ``negs.clone()`` as stream references, both
   flushes.  With ``--earlier``, the earlier checkout's kernel too, and the
   two timed in alternation.
+- ``stats_mf``: ``csrc/ccl_stats.cu`` (the per-example stats) at the MF
+  step's shape (B = 1,024, n = 64, K = 128), and copies of it built with
+  ``-DPROBE_NO_LOADS`` (no negatives read), ``-DPROBE_NO_STORES`` (no
+  ``nn``/``un`` written) and both, and the variants of
+  ``STATS_MF_VARIANTS`` (text edits of the source), beside
+  ``einsum("bk,bnk->bn")`` (``un`` alone) and
+  ``torch.linalg.vector_norm(negs, dim=-1)`` (one read of the negatives),
+  both flushes; each whole kernel is checked against its plain version and
+  called twice for the same bits.  With ``--earlier``, the earlier
+  checkout's kernel too, and the two timed in alternation after each flush.
 - ``flash``: ``csrc/flash_attention.cu`` (fp32 on the SIMT pipes), copies
   of it without the FMAs of q k^T and without those of P v (garbage
   results; only their time is read), and the split-TF32 attempt
@@ -72,12 +82,23 @@ otherwise.
   as ``sorted_segment_sum_before``), in the order current, earlier,
   earlier, current: ``segment_reduce``'s device time per step and the
   step's busy time.
+- ``launches``: the fp32 ``MF_100M_PALLAS`` step (chip_smoke.py phase 5's
+  configuration and dataset) profiled over three 16-step windows, with
+  ``sorted_segment_sum`` as it is, in its earlier form, and as it is again:
+  device events per step (also as chip_smoke.py phase 7 counts them), and
+  for each operator that launched any (with its parent operators) its
+  launches per step and their kernels' names.
+- ``step_stats`` (needs ``--earlier``): the same step profiled over 16-step
+  windows with the current and the earlier checkout's ``ccl_stats.cu``, in
+  the order current, earlier, earlier, current: the step's device time and
+  the stats kernel's, per step.
 
 ``--earlier DIR`` names the root of an earlier checkout of this repository
 (for example ``git archive`` of a parent commit unpacked under ``build/``):
-parts ``bwd_mf`` and ``dequant`` then also build that checkout's
-``ccl_bwd.cu`` and ``gather_dequant.cu`` and time them beside the current
-ones in the same run.
+parts ``bwd_mf``, ``stats_mf``, ``step_stats`` and ``dequant`` then also
+build that checkout's ``ccl_bwd.cu``, ``ccl_stats.cu`` and
+``gather_dequant.cu`` and time them beside the current ones in the same
+run.
 """
 from __future__ import annotations
 
@@ -97,11 +118,26 @@ T, K, N_NEG = 8 * 1023, 960, 64
 ROWS, B = 400_000, 1024
 AMAZON_USERS = 20_980_000
 AMAZON_ITEMS = 9_350_000
-PARTS = ("stats", "bwd", "bwd_mf", "flash", "ties", "dequant", "segment_sum")
+PARTS = ("stats", "bwd", "bwd_mf", "stats_mf", "flash", "ties", "dequant", "segment_sum",
+         "launches", "step_stats")
 ATTEMPTS = os.path.join(CSRC, "attempts")
 _BWD_MF_ARGS = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 3 + [ctypes.c_float] * 2 + [
     ctypes.c_void_p]
 _DEQUANT_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+_STATS_MF_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+#: variants of ``csrc/ccl_stats.cu`` that part ``stats_mf`` also times:
+#: label -> ((text of the source, its replacement), ...).
+_GROUP = "constexpr int kGroup = 4;"
+_LOAD, _LDCS = "nb[(size_t)j * KV + col]", "__ldcs(nb + (size_t)j * KV + col)"
+STATS_MF_VARIANTS = {
+    "ccl_stats, plain loads": ((_LDCS, _LOAD),),
+    "ccl_stats, last-use loads": ((_LDCS, "__ldlu(nb + (size_t)j * KV + col)"),),
+    "ccl_stats, 2 negatives a warp": ((_GROUP, "constexpr int kGroup = 2;"),),
+    "ccl_stats, 8 negatives a warp": ((_GROUP, "constexpr int kGroup = 8;"),),
+    "ccl_stats, 16 negatives a warp": ((_GROUP, "constexpr int kGroup = 16;"),),
+    "ccl_stats, 16 negatives a warp, plain loads (the first design)": (
+        (_GROUP, "constexpr int kGroup = 16;"), (_LDCS, _LOAD)),
+}
 #: the unshipped gather-dequant variants that part ``dequant`` also times:
 #: each source under ``csrc/attempts/`` with the compiler flags (its
 #: switches) of each copy.
@@ -159,6 +195,27 @@ def bwd_mf_variants(src: str) -> dict[str, tuple[str, tuple[str, ...]]]:
             "ccl_bwd, neither": (src, ("-DPROBE_NO_LOADS", "-DPROBE_NO_STORES"))}
 
 
+def stats_mf_variants(src: str) -> dict[str, tuple[str, tuple[str, ...]]]:
+    """The per-example stats kernel's source as it is, without its negatives
+    loads, without its ``nn``/``un`` stores, without either, and the text
+    variants of :data:`STATS_MF_VARIANTS`."""
+    for macro in ("PROBE_NO_LOADS", "PROBE_NO_STORES"):
+        if macro not in src:
+            raise ValueError(f"ccl_stats.cu no longer reads {macro}")
+    out = {"ccl_stats": (src, ()),
+           "ccl_stats, no negatives loads": (src, ("-DPROBE_NO_LOADS",)),
+           "ccl_stats, no nn/un stores": (src, ("-DPROBE_NO_STORES",)),
+           "ccl_stats, neither": (src, ("-DPROBE_NO_LOADS", "-DPROBE_NO_STORES"))}
+    for name, edits in STATS_MF_VARIANTS.items():
+        text = src
+        for old, new in edits:
+            if old not in text:
+                raise ValueError(f"ccl_stats.cu no longer contains {old!r}")
+            text = text.replace(old, new)
+        out[name] = (text, ())
+    return out
+
+
 def earlier_source(earlier: str | None, name: str) -> dict[str, tuple[str, tuple[str, ...]]]:
     """``{label: (source, ())}`` for ``csrc/<name>.cu`` of the earlier
     checkout at ``earlier``, or nothing when none was given."""
@@ -176,8 +233,10 @@ def bind(lib: ctypes.CDLL, symbol: str, argtypes) -> ctypes._CFuncPtr:
     return fn
 
 
-def build(variants: dict[str, tuple[str, tuple[str, ...]]], tag: str) -> dict[str, ctypes.CDLL]:
-    """Compile every variant in parallel, one nvcc each, and load them."""
+def build(variants: dict[str, tuple[str, tuple[str, ...]]], tag: str,
+          logs: dict | None = None) -> dict[str, ctypes.CDLL]:
+    """Compile every variant in parallel, one nvcc each, and load them;
+    each compiler output goes into ``logs`` when one is given."""
     from repro_torch.kernels import _build
     os.makedirs(OUT_DIR, exist_ok=True)
     procs = {}
@@ -193,6 +252,8 @@ def build(variants: dict[str, tuple[str, tuple[str, ...]]], tag: str) -> dict[st
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}:\n{log}")
+        if logs is not None:
+            logs[name] = log
         libs[name] = ctypes.CDLL(so)
     return libs
 
@@ -517,6 +578,57 @@ def part_bwd_mf(dev, timer: Timer, card: str, earlier: str | None) -> None:
                   flush=True)
 
 
+def part_stats_mf(dev, timer: Timer, card: str, earlier: str | None) -> None:
+    """The per-example stats kernel, its copies without loads or stores, its
+    variants, and the earlier checkout's kernel where one is given."""
+    import torch
+    from repro_torch.kernels import ccl_similarity
+    variants = stats_mf_variants(read_source("ccl_stats"))
+    variants.update(earlier_source(earlier, "ccl_stats"))
+    logs = {}
+    libs = build(variants, "stats_mf", logs)
+    for name, log in logs.items():
+        regs = [line.split("Used ")[-1].strip() for line in log.splitlines() if "Used" in line]
+        print(f"{name}: {' / '.join(regs)} (scalar / float4 path)", flush=True)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    u = 0.1 * torch.randn(B, 128, generator=gen, device=dev)
+    p = 0.1 * torch.randn(B, 128, generator=gen, device=dev)
+    negs = 0.1 * torch.randn(B, N_NEG, 128, generator=gen, device=dev)
+    want = ccl_similarity.ccl_stats_plain(u, p, negs)
+    stream = torch.cuda.current_stream().cuda_stream
+    calls = {}
+    for name, lib in libs.items():
+        fn = bind(lib, "ccl_stats", _STATS_MF_ARGS)
+        outs = [torch.empty(B, 1, device=dev) for _ in range(3)] + [
+            torch.empty(B, N_NEG, device=dev) for _ in range(2)]
+        args = (u.data_ptr(), p.data_ptr(), negs.data_ptr(), *(o.data_ptr() for o in outs),
+                B, N_NEG, 128, 1, stream)
+        if fn(*args) != 0:
+            raise RuntimeError(f"{name}: launch failed")
+        torch.cuda.synchronize()
+        if "no " not in name and "neither" not in name:     # whole kernels: check them
+            first = [o.clone() for o in outs]
+            if fn(*args) != 0:
+                raise RuntimeError(f"{name}: launch failed")
+            torch.cuda.synchronize()
+            for o, o1, w in zip(outs, first, want):
+                if not bool(((o - w).abs() <= 1e-6 + 1e-5 * w.abs()).all()):
+                    raise AssertionError(f"{name} disagrees with ccl_stats_plain")
+                if not torch.equal(o, o1):
+                    raise AssertionError(f"{name}: two calls differ")
+        calls[name] = lambda fn=fn, args=args, outs=outs: fn(*args)
+    calls["einsum(bk,bnk->bn)"] = lambda: torch.einsum("bk,bnk->bn", u, negs)
+    calls["vector_norm(negs, dim=-1)"] = lambda: torch.linalg.vector_norm(negs, dim=-1)
+    both_flushes(calls, timer, card)
+    if earlier:
+        pair = {n: calls[n] for n in ("ccl_stats", "ccl_stats (earlier checkout)")}
+        for flush, evict in (("written", None), ("read", timer.flush.sum)):
+            for name, ts in alternate(timer, pair, evict=evict).items():
+                print(f"alternated {name} (B={B}, n={N_NEG}, K=128), after a {flush} flush: "
+                      f"{spread(ts)} | {card}", flush=True)
+
+
 def part_dequant(dev, timer: Timer, card: str, earlier: str | None) -> None:
     """#5 at the int8 AMAZON step's three gathers, in alternation with
     q.index_select, a one-element kernel and the earlier checkout's kernel
@@ -621,14 +733,118 @@ def part_segment_sum(dev, card: str) -> None:
               flush=True)
 
 
+MF_WINDOW = 16
+
+
+def mf_fp32_executor(dev):
+    """chip_smoke.py phase 5's fp32 ``MF_100M_PALLAS`` step as an executor
+    of ``MF_WINDOW``-step windows, after one warm-up window: (executor,
+    state)."""
+    from repro_torch.configs.heat_mf import MF_100M_PALLAS
+    from repro_torch.core import mf
+    from repro_torch.data import pipeline
+    from repro_torch.train import trainer
+    cfg = MF_100M_PALLAS
+    dds = pipeline.device_cf_dataset(pipeline.synth_cf_dataset(4096, cfg.num_items), dev)
+    state = mf.init_mf(0, cfg, device=dev)
+    body = mf.make_scan_body(cfg, lambda s: pipeline.cf_batch_device(dds, 0, s, B), 0)
+    executor = trainer.EpochExecutor(body, MF_WINDOW)
+    state, _ = executor.run(state, 0, MF_WINDOW)
+    return executor, state
+
+
+def part_step_stats(dev, card: str, earlier: str | None) -> None:
+    """The fp32 MF step's device time with the current and the earlier
+    checkout's ccl_stats.cu, profiled in the order current, earlier,
+    earlier, current."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import _build
+    if not earlier:
+        print("step_stats: needs --earlier DIR: not measured", flush=True)
+        return
+    current = _build.library("ccl_stats")
+    (then,) = build(earlier_source(earlier, "ccl_stats"), "step_stats").values()
+    executor, state = mf_fp32_executor(dev)
+    for w, (label, lib) in enumerate((("current", current), ("earlier", then),
+                                      ("earlier", then), ("current", current)), start=1):
+        _build._LIBS["ccl_stats"] = lib
+        try:
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                state, _ = executor.run(state, w * MF_WINDOW, MF_WINDOW)
+                torch.cuda.synchronize()
+        finally:
+            _build._LIBS["ccl_stats"] = current
+        kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        busy = sum(e.self_device_time_total for e in kern) / MF_WINDOW
+        stats = sum(e.self_device_time_total for e in kern
+                    if "ccl_stats_kernel" in e.key) / MF_WINDOW
+        if busy <= 0:
+            print(f"step_stats {label}: the profiler saw no device time: not measured")
+            continue
+        print(f"step_stats {label} ccl_stats.cu: fp32 MF step, ccl_stats {stats:.1f} us of "
+              f"{busy:.1f} us device time per step ({MF_WINDOW}-step window) | {card}",
+              flush=True)
+
+
+def part_launches(dev, card: str) -> None:
+    """The fp32 MF step's device events per step, by the operator that
+    launched them, over three profiled 16-step windows."""
+    import collections
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import tiling
+    window = MF_WINDOW
+    executor, state = mf_fp32_executor(dev)
+    current = tiling.sorted_segment_sum
+    for w, (label, form) in enumerate((("current", current),
+                                       ("earlier", sorted_segment_sum_before),
+                                       ("current", current)), start=1):
+        tiling.sorted_segment_sum = form
+        try:
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                state, _ = executor.run(state, w * window, window)
+                torch.cuda.synchronize()
+        finally:
+            tiling.sorted_segment_sum = current
+        events = prof.events()
+        device = [e for e in events if e.device_type == DeviceType.CUDA]
+        by_op = collections.defaultdict(collections.Counter)
+        for e in events:
+            if e.device_type != DeviceType.CPU or not e.kernels:
+                continue
+            chain, parent = [e.name], e.cpu_parent
+            while parent is not None and len(chain) < 3:
+                chain.append(parent.name)
+                parent = parent.cpu_parent
+            for k in e.kernels:
+                by_op[" < ".join(chain)][k.name[:60]] += 1
+        attributed = sum(sum(c.values()) for c in by_op.values())
+        phase7 = sum(e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+        print(f"launches window {w} ({label} sorted_segment_sum): {len(device) / window:.2f} "
+              f"device events per step ({phase7 / window:.2f} counted as chip_smoke.py phase 7 "
+              f"counts them), {attributed / window:.2f} attributed to an operator | {card}",
+              flush=True)
+        for op in sorted(by_op):
+            kinds = "; ".join(f"{name} x{n / window:g}" for name, n in sorted(by_op[op].items()))
+            print(f"launches window {w}: {sum(by_op[op].values()) / window:g} per step by "
+                  f"{op}: {kinds}", flush=True)
+
+
 def main() -> int:
     import torch
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parts", default=",".join(PARTS),
                     help=f"comma-separated subset of {','.join(PARTS)}")
     ap.add_argument("--earlier", default=None,
-                    help="root of an earlier checkout whose ccl_bwd.cu and "
-                         "gather_dequant.cu parts bwd_mf and dequant also time")
+                    help="root of an earlier checkout whose ccl_bwd.cu, ccl_stats.cu "
+                         "and gather_dequant.cu parts bwd_mf, stats_mf and dequant "
+                         "also time")
     args = ap.parse_args()
     parts = args.parts.split(",")
     unknown = set(parts) - set(PARTS)
@@ -646,6 +862,8 @@ def main() -> int:
         part_bwd(dev, timer, card)
     if "bwd_mf" in parts:
         part_bwd_mf(dev, timer, card, args.earlier)
+    if "stats_mf" in parts:
+        part_stats_mf(dev, timer, card, args.earlier)
     if "flash" in parts:
         part_flash(dev, timer, card)
     if "ties" in parts:
@@ -656,6 +874,10 @@ def main() -> int:
         del timer
         torch.cuda.empty_cache()
         part_segment_sum(dev, card)
+    if "launches" in parts:
+        part_launches(dev, card)
+    if "step_stats" in parts:
+        part_step_stats(dev, card, args.earlier)
     print(card)
     return 0
 
