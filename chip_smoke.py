@@ -9,8 +9,11 @@ main paths: through ``train_mf``, HEAT MF training with ``MF_100M_PALLAS``
 paper-scale ``AMAZON`` model (20.98M users x 9.35M items, K=128, n=64,
 behavior aggregation, tile 1,024) with int8 tables; through ``train_lm``,
 smollm-360m (32 layers, d=960, vocab 49,152) with the HEAT vocab head on the
-kernel backend; and the attention dispatcher ``ops.attention`` at
-smollm-360m's attention shape.  Phases, one line each:
+kernel backend; the attention dispatcher ``ops.attention`` at
+smollm-360m's attention shape; the other MF engines (the SimpleX baseline,
+MSE, the popularity and in-batch samplers); and top-k serving through the
+``BatchingRecommender`` with the exact and the tile-pruned retrieval.
+Phases, one line each (a few print more):
 
   1. the card (name and power limit from nvidia-smi);
   2. the kernel build, with its seconds and each kernel's registers;
@@ -90,7 +93,37 @@ smollm-360m's attention shape.  Phases, one line each:
      the same id check on 16 users; a tie check (integer embeddings,
      ``similarity="dot"``, a chunk that does not divide the catalog) against
      numpy's stable argsort; and no launch of the port's kernels (the
-     evaluation runs none).
+     evaluation runs none);
+ 15. the engines at full width: ``MF_100M_PALLAS`` at batch 1,024 through
+     ``train_mf`` for 32 steps in windows of 16 with each of
+     simplex_bmm+dense+uniform (the SimpleX baseline of the paper's Table 1),
+     fused+scatter_add+uniform, mse_dot+scatter_add+uniform,
+     pallas+pallas+popularity, pallas+pallas+in_batch and the config's own
+     HEAT engine pallas+pallas+tile: finite losses, the launches of the
+     stats, backward and gather-FMA kernels (once, once and twice a step on
+     the pallas engines, never on the others), steps/s over two more windows
+     and the device time per step over a profiled one; for popularity and
+     in_batch two 2-step runs from one state, bit for bit; then ``AMAZON``
+     int8 with the popularity sampler (an fp64 CDF over the 9.35M items'
+     counts) for 16 steps on phase 8's dataset: finite losses, three
+     gather-dequant launches a step and two 2-step runs bit for bit; and
+     Algorithm 1's (``tune_tiling``) plans on the H100 constants beside the
+     configs' own (N1, N2);
+ 16. serving at full width on phase 5's trained ``MF_100M_PALLAS``:
+     ``build_retrieval_index`` (512-row tiles, k-means on the card) with its
+     seconds; ``topk_pruned`` over every tile against ``topk_all_items``
+     (the same id sets for 256 users) and the pruned top-20's recall at 8
+     and 32 tiles; a ``BatchingRecommender`` with each of the exact and the
+     tile pruner (k=20, max_batch 32, max_wait 2 ms, training positives
+     excluded) under 1,024 concurrent single-user requests from threads
+     released together: qps, p50, p99, device calls and one call shape,
+     ``recommend_many`` of 32 users alone (ms a call) and equal to the direct
+     top-k, ``refresh_from`` a second trained state (the answers
+     move to its top-k; training it further changes nothing served), a
+     wrong-shaped refresh that must leave ``health`` degraded with the
+     answers standing, and a good one that restores ok; then the exact
+     pruner over the trained int8 ``AMAZON`` tables (9.35M items) for 32
+     users, with ms a call.
 
 Then it prints the kernels' JSON line, the card line, and as its last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
@@ -718,6 +751,455 @@ def eval_phase(dev, card: str, ds, mf_trained, amazon, amazon_users, counters) -
           f"launched in phase 14: {launches} | {card}", flush=True)
 
 
+def device_us(executor, state, start: int, length: int):
+    """Device time (us) and kernel launches per step over one profiled
+    window of ``executor`` from ``state`` (None, None where the profiler
+    saw no device time); returns them and the state after the window."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        state, _ = executor.run(state, start, length)
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kern) / length
+    if busy <= 0:
+        return None, None, state
+    return busy, sum(e.count for e in kern) / length, state
+
+
+def same_bits(a, b) -> bool:
+    """Every tensor of two (nested) states or tuples equal bit for bit."""
+    import torch
+    if isinstance(a, torch.Tensor):
+        return torch.equal(a, b)
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(same_bits(x, y) for x, y in zip(a, b))
+    return a == b
+
+
+def clone_state(state):
+    """A copy of an MF state whose tables the step can update in place
+    without touching ``state``'s."""
+    import torch
+    from repro_torch.core import mf
+    from repro_torch.optim import quantization as qz
+
+    def cl(t):
+        if t is None:
+            return None
+        if isinstance(t, qz.QuantizedTable):
+            return qz.QuantizedTable(*(x.clone() for x in t))
+        return t.clone() if isinstance(t, torch.Tensor) else t
+
+    p = state.params
+    tile = state.tile and state.tile._replace(
+        tile_ids=state.tile.tile_ids.clone(), tile_emb=cl(state.tile.tile_emb))
+    return mf.MFState(mf.MFParams(cl(p.user_table), cl(p.item_table), p.aggregator),
+                      tile, state.accum, state.step)
+
+
+def repeat_check(cfg, dds, item_weights, steps: int = 2) -> str:
+    """Two runs of ``steps`` steps from one fresh state (seed 1): losses,
+    tables and tile must be the same bits."""
+    import torch
+    from repro_torch.core import mf
+    from repro_torch.data import pipeline
+    body = mf.make_scan_body(cfg, lambda s: pipeline.cf_batch_device(
+        dds, 1, s, B, cfg.history_len), 1, item_weights=item_weights)
+    base = mf.init_mf(1, cfg, device=dds.train_pos.device)
+    runs = []
+    for state in (clone_state(base), base):
+        out = []
+        for step in range(steps):
+            state, loss = body(state, step)
+            out.append(loss)
+        runs.append((state.params.user_table, state.params.item_table,
+                     state.tile, torch.stack(out)))
+    assert same_bits(runs[0], runs[1]), f"{cfg.sampler}: two runs from one state differ"
+    return f"{steps} steps twice from one state: losses, tables and tile identical bit for bit"
+
+
+#: phase 15: the engines of MF_100M_PALLAS, as (backend, update_impl, sampler).
+ENGINES = (("simplex_bmm", "dense", "uniform"), ("fused", "scatter_add", "uniform"),
+           ("mse_dot", "scatter_add", "uniform"), ("pallas", "pallas", "popularity"),
+           ("pallas", "pallas", "in_batch"), ("pallas", "pallas", "tile"))
+ENGINE_STEPS, ENGINE_WINDOW, AMAZON_POP_STEPS = 32, 16, 16
+#: phase 15: Algorithm 1's total iterations M for the plans it prints (about
+#: 10^9 samples at batch 1,024).
+PLAN_ITERATIONS = 1_000_000
+
+
+def engines_phase(dev, card: str, ds, ds8, counters, cfg0=None, cfg8=None) -> None:
+    """Phase 15: each engine of ``ENGINES`` on ``cfg0`` (``MF_100M_PALLAS``),
+    ``AMAZON`` int8 with the popularity sampler, and Algorithm 1's plans."""
+    import torch
+    from repro_torch.configs.heat_mf import AMAZON, MF_100M_PALLAS
+    from repro_torch.core import mf, tiling
+    from repro_torch.data import pipeline
+    from repro_torch.train import trainer
+    cfg0 = cfg0 or MF_100M_PALLAS
+    dds = pipeline.device_cf_dataset(ds, dev)
+    kernel_names = ("ccl_stats", "ccl_bwd", "gather_fma")
+    results = {}
+    for backend, update, sampler in ENGINES:
+        cfg = dataclasses.replace(cfg0, backend=backend, update_impl=update,
+                                  sampler=sampler)
+        name = f"{backend}+{update}+{sampler}"
+        for c in counters:
+            c.reset()
+        torch.cuda.synchronize()
+        state, losses = trainer.train_mf(cfg, ds, ENGINE_STEPS, batch_size=B,
+                                         steps_per_dispatch=ENGINE_WINDOW, device="cuda")
+        torch.cuda.synchronize()
+        launches = {c.name: c.count() for c in counters}
+        assert len(losses) == ENGINE_STEPS and all(math.isfinite(x) for x in losses), \
+            (name, losses)
+        on_kernels = backend == "pallas"
+        want = {c.name: 0 for c in counters}
+        if on_kernels:
+            want.update(ccl_stats=ENGINE_STEPS, ccl_bwd=ENGINE_STEPS,
+                        gather_fma=2 * ENGINE_STEPS)
+        assert launches == want, (name, launches)
+        weights = dds.item_weights if sampler == "popularity" else None
+        executor = trainer.EpochExecutor(mf.make_scan_body(
+            cfg, lambda s: pipeline.cf_batch_device(dds, 0, s, B), 0,
+            item_weights=weights), ENGINE_WINDOW)
+        rates = []
+        for w in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, window = executor.run(state, ENGINE_STEPS + w * ENGINE_WINDOW,
+                                         ENGINE_WINDOW)
+            torch.cuda.synchronize()
+            rates.append(ENGINE_WINDOW / (time.perf_counter() - t0))
+            assert bool(torch.isfinite(window).all()), name
+        rate = rates[-1]
+        busy, n_launch, state = device_us(executor, state, ENGINE_STEPS + 2 * ENGINE_WINDOW,
+                                          ENGINE_WINDOW)
+        results[name] = (rate, busy)
+        dev_txt = ("device time not measured (the profiler saw none)" if busy is None
+                   else f"device time {busy:.1f} us and {n_launch:.0f} launches per step")
+        repeat = (f"; {repeat_check(cfg, dds, weights)}"
+                  if sampler in ("popularity", "in_batch") else "")
+        print(f"[15 engine] MF_100M_PALLAS {name}, batch {B}: {ENGINE_STEPS} steps "
+              f"through train_mf, loss {losses[0]:.4f} -> {losses[-1]:.4f}, all finite; "
+              f"launches of {', '.join(kernel_names)}: "
+              f"{', '.join(str(launches[k]) for k in kernel_names)} (want "
+              f"{', '.join(str(want[k]) for k in kernel_names)}); {rates[0]:.1f} then "
+              f"{rates[1]:.1f} steps/s over two more {ENGINE_WINDOW}-step windows, "
+              f"{dev_txt} over the next{repeat} | "
+              f"{card}", flush=True)
+        del state, executor, window
+    base_rate, base_busy = results["simplex_bmm+dense+uniform"]
+    heat_rate, heat_busy = results["pallas+pallas+tile"]
+    if base_busy is not None and heat_busy is not None:
+        print(f"[15 engine] SimpleX baseline (simplex_bmm+dense+uniform) against HEAT "
+              f"(pallas+pallas+tile) on MF_100M_PALLAS: device time {base_busy:.1f} vs "
+              f"{heat_busy:.1f} us per step ({base_busy / heat_busy:.2f}x), {base_rate:.1f} "
+              f"vs {heat_rate:.1f} steps/s ({heat_rate / base_rate:.2f}x) | {card}", flush=True)
+    torch.cuda.empty_cache()
+
+    # ---- AMAZON int8, popularity over 9.35M items -------------------------
+    cfg8 = cfg8 or dataclasses.replace(AMAZON, backend="pallas", update_impl="pallas",
+                                       table_format="int8")
+    cfg8 = dataclasses.replace(cfg8, sampler="popularity")
+    dds8 = pipeline.device_cf_dataset(ds8, dev)
+    for c in counters:
+        c.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, losses = trainer.train_mf(cfg8, ds8, AMAZON_POP_STEPS, batch_size=B,
+                                     steps_per_dispatch=AMAZON_POP_STEPS, device="cuda")
+    torch.cuda.synchronize()
+    t_train = time.perf_counter() - t0
+    launches = {c.name: c.count() for c in counters}
+    assert len(losses) == AMAZON_POP_STEPS and all(math.isfinite(x) for x in losses), losses
+    want = {c.name: 0 for c in counters}
+    want.update(ccl_stats=AMAZON_POP_STEPS, ccl_bwd=AMAZON_POP_STEPS,
+                gather_dequant=3 * AMAZON_POP_STEPS)
+    assert launches == want, launches
+    positive = int((dds8.item_weights > 0).sum())
+    del state
+    torch.cuda.empty_cache()
+    repeat = repeat_check(cfg8, dds8, dds8.item_weights)
+    print(f"[15 engine] AMAZON int8 pallas+pallas+popularity ({cfg8.num_items} items, "
+          f"{positive} of them with a positive count in the dataset; the draw is an fp64 "
+          f"CDF searched per negative), batch {B}: {AMAZON_POP_STEPS} steps, loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}, all finite; launches {launches}; "
+          f"{AMAZON_POP_STEPS / t_train:.1f} steps/s including init; {repeat} | {card}",
+          flush=True)
+    del dds8
+    torch.cuda.empty_cache()
+
+    # ---- Algorithm 1 on the H100 constants ---------------------------------
+    hw = tiling.HardwareModel()
+    for label, c in (("MF_100M_PALLAS", cfg0), ("AMAZON", cfg8)):
+        plan = tiling.tune_tiling(c.num_items, PLAN_ITERATIONS, c.num_negatives, c.emb_dim,
+                                  hw=hw)
+        print(f"[15 tiling] {label}: tune_tiling(I={c.num_items}, M={PLAN_ITERATIONS}, "
+              f"n={c.num_negatives}, K={c.emb_dim}) on the H100 constants (HBM "
+              f"{hw.hbm_bandwidth:.3g} B/s, L2 {hw.cache_bandwidth:.4g} B/s, "
+              f"{hw.cache_bytes} B): N1={plan.tile_size}, N2={plan.refresh_interval}, "
+              f"predicted speedup {plan.predicted_speedup:.3f}, t_m {plan.t_m:.3e} s, "
+              f"t_c {plan.t_c:.3e} s; the config's own (N1, N2) = ({c.tile_size}, "
+              f"{c.refresh_interval}) | {card}", flush=True)
+
+
+#: phase 16: the index's tile size, the tile pruner's budgets for the recall
+#: check and for its server, and the servers' shape and load.
+SERVE_TILE_ROWS, SERVE_EXPAND, SERVE_RECALL_EXPANDS = 512, 8, (8, 32)
+SERVE_K, SERVE_MAX_BATCH, SERVE_WAIT_MS, SERVE_REQUESTS = 20, 32, 2.0, 1024
+#: phase 16: users per topk_pruned call at full expansion, whose (users,
+#: catalog, K) candidate block takes 1.6 GB at 8 users.
+PARITY_USERS, PARITY_CHUNK = 256, 8
+#: phase 16: how far (absolute, cosine scores in [-1, 1]) the full-expansion
+#: ids' scores may sit from topk_all_items' top-k's under its own products.
+PARITY_SCORE_TOL = 1e-6
+
+
+def serve_load(server, users, n: int, seed: int = 16):
+    """``n`` concurrent single-user requests, one thread each, on users
+    drawn from ``users``, all released at once by a barrier once every
+    thread has started: (qps over the release-to-last-answer wall time, p50
+    ms, p99 ms, answers by user)."""
+    import threading
+
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    picks = [int(u) for u in rng.choice(users, size=n)]
+    lat, answers, lock = [], {}, threading.Lock()
+    gate = threading.Barrier(n + 1)
+
+    def client(uid):
+        gate.wait(timeout=300)
+        t = time.perf_counter()
+        out = server.recommend(uid, timeout=120.0)
+        with lock:
+            lat.append(1e3 * (time.perf_counter() - t))
+            answers[uid] = out
+
+    threads = [threading.Thread(target=client, args=(u,)) for u in picks]
+    for t in threads:
+        t.start()
+    gate.wait(timeout=300)
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join(timeout=300)
+    wall = time.perf_counter() - t0
+    assert not any(t.is_alive() for t in threads) and len(lat) == n, "requests hung"
+    lat.sort()
+    return n / wall, lat[n // 2], lat[int(0.99 * n)], answers
+
+
+def serving_phase(dev, card: str, ds, mf_trained, amazon, amazon_users, counters,
+                  cfg0=None) -> None:
+    """Phase 16: the retrieval index, the tile pruner against the exact
+    top-k, both servers under concurrent load, refreshes, and an exact
+    serve over the int8 AMAZON tables."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.heat_mf import MF_100M_PALLAS
+    from repro_torch.core import metrics, mf, retrieval
+    from repro_torch.data import pipeline
+    from repro_torch.launch.server import BatchingRecommender
+    from repro_torch.optim import quantization as qz
+    from repro_torch.train import trainer
+    cfg0 = cfg0 or MF_100M_PALLAS
+    params = mf.MFParams(mf_trained.user_table.to(dev), mf_trained.item_table.to(dev), None)
+    n_users, n_items = ds.num_users, qz.num_rows(params.item_table)
+    train = torch.from_numpy(ds.train_mask()).to(dev)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    index = retrieval.build_retrieval_index(params.item_table, tile_rows=SERVE_TILE_ROWS)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    members = index.member_ids.reshape(-1)
+    assert torch.equal(torch.sort(members[members >= 0]).values,
+                       torch.arange(n_items, device=dev)), "the tiles are no partition"
+    print(f"[16 index] build_retrieval_index on the trained MF_100M_PALLAS items "
+          f"({n_items} x {cfg0.emb_dim}): {index.num_tiles} tiles x {index.tile_rows} "
+          f"rows, 8 k-means iterations on the card in {t_build:.2f} s; every item in "
+          f"exactly one tile | {card}", flush=True)
+
+    # Full expansion: the pruned ids against the stable top-k (lowest id
+    # first among ties) of the same products laid out by item id, which
+    # must agree; and against topk_all_items, whose products differ in the
+    # last bits: the id sets are counted, and the pruned ids' scores under
+    # the exact path's own products (scores_all_items) must equal its
+    # top-k's scores, so only a near tie may swap an id.
+    same_set = same_order = same_exact = 0
+    score_err = 0.0
+    for u0 in range(0, PARITY_USERS, PARITY_CHUNK):
+        uids = torch.arange(u0, u0 + PARITY_CHUNK, device=dev)
+        got = retrieval.topk_pruned(params, uids, SERVE_K, index,
+                                    expand_tiles=index.num_tiles,
+                                    exclude_mask=train[uids])
+        cand, scores = retrieval.candidate_scores(params, uids, index,
+                                                  expand_tiles=index.num_tiles,
+                                                  exclude_mask=train[uids])
+        live = cand >= 0
+        by_id = torch.full((PARITY_CHUNK, n_items), float("-inf"), device=dev)
+        by_id[torch.nonzero(live)[:, 0], cand[live]] = scores[live]
+        want = metrics.stable_topk(by_id, SERVE_K)
+        exact = mf.topk_all_items(params, uids, SERVE_K, item_chunk=EVAL_CHUNK,
+                                  exclude_mask=train[uids])
+        same_set += int((torch.sort(got, 1).values == torch.sort(want, 1).values)
+                        .all(1).sum())
+        same_order += int((got == want).all(1).sum())
+        same_exact += int((torch.sort(got, 1).values == torch.sort(exact, 1).values)
+                          .all(1).sum())
+        full = mf.scores_all_items(params, uids, item_chunk=EVAL_CHUNK)
+        full = full.masked_fill(train[uids], float("-inf"))
+        score_err = max(score_err, float(
+            (torch.sort(full.gather(1, got), 1).values
+             - torch.sort(full.gather(1, exact), 1).values).abs().max()))
+        del cand, scores, by_id, full
+    assert same_set == PARITY_USERS, \
+        f"full expansion differs from its own scores' top-k for {PARITY_USERS - same_set} users"
+    assert score_err <= PARITY_SCORE_TOL, (
+        f"full expansion's ids score up to {score_err:.3e} away from topk_all_items' "
+        f"top-{SERVE_K} under the exact path's products (tol {PARITY_SCORE_TOL})")
+    users = torch.arange(n_users, device=dev)
+    exact = torch.cat([mf.topk_all_items(params, users[u0:u0 + B], SERVE_K,
+                                         item_chunk=EVAL_CHUNK, exclude_mask=train[u0:u0 + B])
+                       for u0 in range(0, n_users, B)])
+    recalls = []
+    for expand in SERVE_RECALL_EXPANDS:
+        pruned = torch.cat([retrieval.topk_pruned(params, users[u0:u0 + 256], SERVE_K, index,
+                                                  expand_tiles=expand,
+                                                  exclude_mask=train[u0:u0 + 256])
+                            for u0 in range(0, n_users, 256)])
+        hits = (pruned[:, :, None] == exact[:, None, :]).any(2).sum(1)
+        recalls.append(float(hits.float().mean()) / SERVE_K)
+    # Tiles chosen by the centroids must beat tiles chosen by chance (whose
+    # recall is the share of the catalog they hold), and more tiles must
+    # find no fewer of the exact top-k.
+    chance = [e * SERVE_TILE_ROWS / n_items for e in SERVE_RECALL_EXPANDS]
+    assert all(r >= 2 * c for r, c in zip(recalls, chance)), \
+        f"pruned recall {recalls} is not twice chance {chance}"
+    assert recalls == sorted(recalls), f"recall falls with more tiles: {recalls}"
+    print(f"[16 pruned] topk_pruned at expand_tiles={index.num_tiles} (every tile), "
+          f"top-{SERVE_K} with the training positives excluded: the same ids as the stable "
+          f"top-{SERVE_K} of the same products for {same_set} of {PARITY_USERS} users (the "
+          f"same order for {same_order}); the same id sets as topk_all_items (other "
+          f"products: a near tie may swap) for {same_exact}, their scores under "
+          f"topk_all_items' products within {score_err:.3e} of its top-{SERVE_K}'s (tol "
+          f"{PARITY_SCORE_TOL}); Recall@{SERVE_K} of the pruned top-{SERVE_K} against the "
+          f"exact one over all {n_users} users: " + ", ".join(
+              f"{r:.4f} at {e} tiles ({e * SERVE_TILE_ROWS} candidates; chance {c:.4f})"
+              for e, r, c in zip(SERVE_RECALL_EXPANDS, recalls, chance))
+          + f" | {card}", flush=True)
+    del exact, pruned
+
+    # A second trained state for the refreshes.
+    second, _ = trainer.train_mf(cfg0, ds, ENGINE_STEPS, batch_size=B, seed=1,
+                                 steps_per_dispatch=ENGINE_WINDOW, device="cuda")
+    dds = pipeline.device_cf_dataset(ds, dev)
+    more = trainer.EpochExecutor(mf.make_scan_body(cfg0, lambda s: pipeline.cf_batch_device(
+        dds, 1, s, B), 1), ENGINE_WINDOW)
+    state = mf.MFState(params, None, None, 0)
+    probe = np.arange(SERVE_MAX_BATCH)
+
+    def direct(p, idx, pruner):
+        ids = torch.as_tensor(probe, device=dev)
+        if pruner == "tile":
+            return retrieval.topk_pruned(p, ids, SERVE_K, idx, expand_tiles=SERVE_EXPAND,
+                                         exclude_mask=train[ids]).cpu().numpy()
+        return mf.topk_all_items(p, ids, SERVE_K, item_chunk=EVAL_CHUNK,
+                                 exclude_mask=train[ids]).cpu().numpy()
+
+    for pruner in ("exact", "tile"):
+        with BatchingRecommender(state, SERVE_K, pruner=pruner,
+                                 index=index if pruner == "tile" else None,
+                                 expand_tiles=SERVE_EXPAND, max_batch=SERVE_MAX_BATCH,
+                                 max_wait_ms=SERVE_WAIT_MS, item_chunk=EVAL_CHUNK,
+                                 exclude_mask=train) as server:
+            qps, p50, p99, answers = serve_load(server, np.arange(n_users), SERVE_REQUESTS)
+            calls = server.stats["device_calls"]
+            assert server.trace_count == 1, server.trace_count
+            call_ms = []
+            for _ in range(10):
+                t0 = time.perf_counter()
+                first = server.recommend_many(probe)
+                call_ms.append(1e3 * (time.perf_counter() - t0))
+            assert np.array_equal(first, direct(params, index, pruner)), \
+                f"{pruner}: recommend_many differs from the direct top-k"
+            assert all(np.array_equal(answers[u], first[u]) for u in answers
+                       if u < SERVE_MAX_BATCH), f"{pruner}: a coalesced answer differs"
+            # refresh_from a second trained state: the answers move to its top-k,
+            # and training that state further changes nothing served.
+            assert server.refresh_from(second, on_error="raise")
+            idx2 = (retrieval.refresh_index(index, second.params.item_table)
+                    if pruner == "tile" else None)
+            want2 = direct(second.params, idx2, pruner)
+            got2 = server.recommend_many(probe)
+            assert np.array_equal(got2, want2), f"{pruner}: refreshed answers differ"
+            assert not np.array_equal(got2, first), f"{pruner}: the refresh moved nothing"
+            before = second.params.item_table.clone()
+            second, _ = more.run(second, ENGINE_STEPS, ENGINE_WINDOW)
+            torch.cuda.synchronize()
+            assert not torch.equal(before, second.params.item_table), "no step moved"
+            assert np.array_equal(server.recommend_many(probe), got2), \
+                f"{pruner}: training the source moved the served answers"
+            del before
+            # A wrong-shaped refresh degrades and keeps the answers; the next
+            # good one restores ok.
+            bad = mf.MFState(mf.MFParams(second.params.user_table[:100],
+                                         second.params.item_table, None), None, None, 0)
+            assert not server.refresh_from(bad)
+            health = server.health
+            assert health["status"] == "degraded" and health["refresh_failures"] == 1, health
+            assert np.array_equal(server.recommend_many(probe), got2)
+            assert server.refresh_from(second) and server.health["status"] == "ok"
+            assert server.trace_count == 1, server.trace_count
+        print(f"[16 serve] BatchingRecommender pruner={pruner} (k={SERVE_K}, max_batch "
+              f"{SERVE_MAX_BATCH}, max_wait {SERVE_WAIT_MS} ms"
+              + (f", {SERVE_EXPAND} tiles" if pruner == "tile" else
+                 f", chunks of {EVAL_CHUNK}") + f", training positives excluded) on the "
+              f"trained MF_100M_PALLAS: {SERVE_REQUESTS} concurrent single-user requests "
+              f"from threads released together: {qps:.0f} qps, p50 {p50:.2f} ms, p99 "
+              f"{p99:.2f} ms, {calls} device calls (warm-up included), call shapes 1; "
+              f"recommend_many of {SERVE_MAX_BATCH} users alone "
+              f"{statistics.median(call_ms):.2f} ms a call (median of 10), equal to the "
+              f"direct top-k; refresh_from a second "
+              f"trained state moved them to its top-k, and {ENGINE_WINDOW} more steps on "
+              f"that state (its tables changed in place) left them unchanged; a "
+              f"wrong-shaped refresh left status "
+              f"degraded ({health['last_refresh_error'][:60]}...) and the answers, the "
+              f"next good one restored ok | {card}", flush=True)
+    del second, state, params, index, train, dds
+    torch.cuda.empty_cache()
+
+    # The exact pruner over the int8 AMAZON tables.
+    params8 = mf.MFParams(qz.QuantizedTable(*(x.to(dev) for x in amazon.user_table)),
+                          qz.QuantizedTable(*(x.to(dev) for x in amazon.item_table)), None)
+    users8 = amazon_users[:SERVE_MAX_BATCH].numpy()
+    for c in counters:
+        c.reset()
+    with BatchingRecommender(mf.MFState(params8, None, None, 0), SERVE_K,
+                             max_batch=SERVE_MAX_BATCH, item_chunk=EVAL_CHUNK) as server:
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got8 = server.recommend_many(users8)
+            times.append(1e3 * (time.perf_counter() - t0))
+    want8 = mf.topk_all_items(params8, torch.as_tensor(users8, device=dev), SERVE_K,
+                              item_chunk=EVAL_CHUNK).cpu().numpy()
+    assert np.array_equal(got8, want8), "int8 serve differs from the direct top-k"
+    launches = {c.name: c.count() for c in counters}
+    assert not any(launches.values()), launches
+    print(f"[16 serve] AMAZON int8 exact pruner, recommend_many of {SERVE_MAX_BATCH} "
+          f"users over {qz.num_rows(params8.item_table)} items in chunks of {EVAL_CHUNK} "
+          f"(table_spec {qz.table_spec(params8.item_table)}): "
+          f"{statistics.median(times):.1f} ms a "
+          f"call (median of 3: {', '.join(f'{t:.1f}' for t in times)}), equal to the "
+          f"direct top-k; the port's kernels launched by this serve: {launches} | {card}",
+          flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1040,7 +1522,7 @@ def main() -> int:
     amazon = mf.MFParams(*(qz.QuantizedTable(*(x.cpu() for x in t))
                            for t in (tables.user_table, tables.item_table)), None)
     amazon_users = batch.user_ids.cpu()
-    del state, executor, body, dds8, ds8, tables, batch, cases, table, ids
+    del state, executor, body, dds8, tables, batch, cases, table, ids      # ds8: phase 15
     torch.cuda.empty_cache()
 
     # ---- 9: an int8 restart, bit for bit -----------------------------------
@@ -1075,6 +1557,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     kernels += lm_phases(dev, card, flush, counters)
     eval_phase(dev, card, ds, mf_trained, amazon, amazon_users, counters)
+    torch.cuda.empty_cache()
+    engines_phase(dev, card, ds, ds8, counters)
+    torch.cuda.empty_cache()
+    serving_phase(dev, card, ds, mf_trained, amazon, amazon_users, counters)
 
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -53,7 +53,8 @@ def sampled_ccl_loss(hidden, targets, out_table, rng: int, cfg: HeatHeadConfig,
     ``(loss, new_tile)``.
 
     The loss and the negative draw go through the engine registries
-    (``cfg.backend``/``cfg.sampler``; ``engine`` overrides).  The negatives
+    (``cfg.backend``/``cfg.sampler``; ``engine`` overrides); the sampler
+    sees the targets as the batch's positives (``in_batch``).  The negatives
     come in the step-shared (n, D) layout; after the draw the tile takes its
     scheduled refresh, as in the reference."""
     if engine is None:
@@ -64,7 +65,7 @@ def sampled_ccl_loss(hidden, targets, out_table, rng: int, cfg: HeatHeadConfig,
     pos_e = gather_rows(out_table, tgt)                          # (T, D)
     dev = hidden.device
     drawn = engine.sampler.sample(
-        SampleContext(table=out_table, tile=tile),
+        SampleContext(table=out_table, tile=tile, pos_ids=tgt),
         generator(fold_in(rng, NEG_SALT), dev), (cfg.num_negatives,))
     m = mask.reshape(b * s) if mask is not None else None
     loss = engine.loss_fn(h, pos_e, drawn.embs, mu=cfg.mu, theta=cfg.theta,

@@ -15,8 +15,10 @@ negative layouts: per-example ``(B, n, K)`` and the LM head's step-shared
 ``(n, K)``, with per-row weights ``w`` (:func:`loss_weights`) so masked rows
 drop out of the loss and the backward, and the gradient of ``w`` returned
 too.  :func:`ccl_loss_autodiff` keeps the plain-autograd version as the
-oracle, for both layouts and masks.  The SimpleX bmm, MSE and BPR baselines
-wait for a later slice.
+oracle, for both layouts and masks.  The baselines go through plain
+autograd: :func:`ccl_loss_simplex_bmm` (SimpleX's concat -> normalize -> bmm,
+paper §3.2), :func:`mse_loss_dot` (dot product and MSE on the positive, the
+CuMF_SGD class) and :func:`bpr_loss`.
 """
 from __future__ import annotations
 
@@ -28,6 +30,8 @@ from repro_torch.core.similarity import (
     dot_from_stats,
     layout_stats,
     pair_stats,
+    simplex_bmm_similarity,
+    simplex_bmm_similarity_shared,
 )
 
 
@@ -202,3 +206,37 @@ def ccl_loss_autodiff(user, pos, negs, mu: float = 1.0, theta: float = 0.0,
         return _ccl_rows(ps, ns, mu, theta).mean()
     w = loss_weights(mask, user.shape[0], user.dtype, user.device)
     return torch.sum(_ccl_rows(ps, ns, mu, theta) * w)
+
+
+def ccl_loss_simplex_bmm(user, pos, negs, mu: float = 1.0, theta: float = 0.0,
+                         mask=None):
+    """CCL over the SimpleX concat -> normalize -> bmm similarities (paper
+    §3.2) through plain autograd: the baseline HEAT is measured against.
+    ``negs`` (B, n, K) or step-shared (n, K); an optional per-row mask."""
+    if negs.dim() == 2:
+        ps, ns = simplex_bmm_similarity_shared(user, pos, negs)
+    else:
+        ps, ns = simplex_bmm_similarity(user, pos, negs)
+    rows = _ccl_rows(ps, ns, mu, theta)
+    if mask is None:
+        return rows.mean()
+    return torch.sum(rows * loss_weights(mask, user.shape[0], user.dtype,
+                                         user.device))
+
+
+def mse_loss_dot(user, pos, rating: float = 1.0, mask=None):
+    """The CuMF_SGD-class baseline: dot-product prediction and squared error
+    against ``rating`` on the positive alone (negatives unused)."""
+    err = (rating - torch.sum(user * pos, dim=-1)) ** 2
+    if mask is None:
+        return err.mean()
+    return torch.sum(loss_weights(mask, user.shape[0], user.dtype,
+                                  user.device) * err)
+
+
+def bpr_loss(user, pos, negs):
+    """BPR (related work, §6): ``-mean log sigmoid(u.p - u.n_j)`` over the
+    (B, n) pairs of per-example negatives."""
+    up = torch.sum(user * pos, dim=-1)
+    un = torch.einsum("bk,bnk->bn", user, negs)
+    return -torch.mean(torch.nn.functional.logsigmoid(up[:, None] - un))

@@ -173,7 +173,8 @@ def init_mf(seed: int, cfg: MFConfig, *, device=None) -> MFState:
 
 
 def heat_train_step(state: MFState, batch: Batch, rng: int, cfg: MFConfig,
-                    *, engine: Optional[StepEngine] = None):
+                    *, engine: Optional[StepEngine] = None,
+                    item_weights: Optional[torch.Tensor] = None):
     """One HEAT iteration; returns ``(new_state, loss)`` with the loss a
     0-d tensor on the device.
 
@@ -186,7 +187,9 @@ def heat_train_step(state: MFState, batch: Batch, rng: int, cfg: MFConfig,
     the config); int8 tables replace the engine's row update with the
     requantizing one, as in the reference.  Gathers from an int8 table go
     through the gather-dequant kernel when ``engine.backend == 'pallas'``.
-    The tables are updated in place."""
+    The sampler's context carries the batch's positives (``in_batch``) and
+    ``item_weights`` ((I,) unnormalized, for ``popularity``).  The tables
+    are updated in place."""
     if engine is None:
         engine = resolve_engine(cfg)
     params, tile = state.params, state.tile
@@ -200,7 +203,8 @@ def heat_train_step(state: MFState, batch: Batch, rng: int, cfg: MFConfig,
                            use_kernel=in_kernel)
     n_shape = (batch.user_ids.shape[0], cfg.num_negatives)
     drawn = engine.sampler.sample(
-        SampleContext(table=params.item_table, tile=tile),
+        SampleContext(table=params.item_table, tile=tile,
+                      pos_ids=batch.pos_ids, weights=item_weights),
         generator(fold_in(rng, NEG_SALT), dev), n_shape)
     neg_ids, neg_e, neg_local = drawn.ids, drawn.embs, drawn.local_idx
     tile = drawn.state.tile
@@ -222,8 +226,11 @@ def heat_train_step(state: MFState, batch: Batch, rng: int, cfg: MFConfig,
                 kind=cfg.aggregation_kind)
         loss = engine.loss_fn(user_in, leaves[1], leaves[2], mu=cfg.mu,
                               theta=cfg.theta, similarity=cfg.similarity)
-        grads = list(torch.autograd.grad(
-            loss, leaves + [t for t in agg_leaves if t is not None]))
+        inputs = leaves + [t for t in agg_leaves if t is not None]
+        # A loss that ignores an input (mse_dot, the negatives) gives it a
+        # zero gradient, as jax.grad does.
+        grads = [torch.zeros_like(x) if g is None else g for x, g in zip(
+            inputs, torch.autograd.grad(loss, inputs, allow_unused=True))]
     g_user, g_pos, g_neg = grads[:3]
 
     # §3.1: only touched rows are written.  All of the step's item gradient
@@ -293,17 +300,19 @@ def heat_train_step(state: MFState, batch: Batch, rng: int, cfg: MFConfig,
 
 
 def make_scan_body(cfg: MFConfig, batch_fn, seed: int, *,
-                   engine: Optional[StepEngine] = None):
+                   engine: Optional[StepEngine] = None,
+                   item_weights: Optional[torch.Tensor] = None):
     """``body(state, step) -> (state, loss)``: the per-step body of the
     trainer's K-step windows.  ``batch_fn(step)`` builds the batch and the
     step key is ``fold_in(seed, step)``, so a window is pure in
-    (state, seed, start)."""
+    (state, seed, start).  ``item_weights`` (for example
+    ``DeviceCFDataset.item_weights``) feeds the ``popularity`` sampler."""
     if engine is None:
         engine = resolve_engine(cfg)
 
     def body(state: MFState, step: int):
         return heat_train_step(state, batch_fn(step), fold_in(seed, step),
-                               cfg, engine=engine)
+                               cfg, engine=engine, item_weights=item_weights)
 
     return body
 

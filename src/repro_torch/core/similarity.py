@@ -10,6 +10,11 @@ without a concatenated or normalized copy.  This is the plain PyTorch form;
 kernel.  :func:`shared_pair_stats` is the same pass for the step-shared
 ``(n, K)`` negatives of the LM head, and :func:`layout_stats` dispatches on
 the negatives' rank.
+
+:func:`simplex_bmm_similarity` (and its shared-layout form) is the SimpleX
+baseline of paper §3.2 that HEAT is measured against: concat -> normalize ->
+bmm, materializing the candidate block and the normalized copies on
+purpose, as the profiled PyTorch implementation does.
 """
 from __future__ import annotations
 
@@ -82,3 +87,37 @@ def cosine_from_stats(res: SimilarityResiduals):
 def dot_from_stats(res: SimilarityResiduals):
     """The (user-pos, user-neg) dot products out of cached residuals."""
     return res.up, res.un
+
+
+def cosine_similarity(user, pos, negs):
+    """The fused path: one stats pass, then cosine; returns ``(pos_sim (B,),
+    neg_sim (B, n), residuals)``."""
+    res = pair_stats(user, pos, negs)
+    pos_sim, neg_sim = cosine_from_stats(res)
+    return pos_sim, neg_sim, res
+
+
+def _normalize(x):
+    """Rows over their L2 norms, the norms clipped below at :data:`EPS`."""
+    return x / torch.linalg.vector_norm(x, dim=-1, keepdim=True).clamp_min(EPS)
+
+
+def simplex_bmm_similarity(user, pos, negs):
+    """The SimpleX concat -> normalize -> bmm baseline (paper §3.2): user
+    (B, K), pos (B, K), negs (B, n, K) -> ``(pos_sim (B,), neg_sim (B, n))``.
+    The (B, 1 + n, K) candidate block and both normalized copies are
+    materialized on purpose: they are the baseline's cost."""
+    cand = torch.cat([pos[:, None, :], negs], dim=1)          # (B, 1+n, K)
+    u_n = _normalize(user)
+    c_n = _normalize(cand)
+    sims = torch.bmm(c_n, u_n[:, :, None])[..., 0]            # (B, 1+n)
+    return sims[:, 0], sims[:, 1:]
+
+
+def simplex_bmm_similarity_shared(user, pos, negs):
+    """The SimpleX normalize-then-matmul baseline for step-shared negatives:
+    user (T, K), pos (T, K), negs (n, K) -> ``(pos_sim (T,), neg_sim (T,
+    n))``; the normalized copies are materialized (shared negatives need no
+    per-row concat)."""
+    u_n, p_n, n_n = _normalize(user), _normalize(pos), _normalize(negs)
+    return torch.sum(u_n * p_n, dim=-1), u_n @ n_n.T

@@ -6,8 +6,12 @@ draws from a ``torch.Generator`` seeded with ``fold_in(fold_in(seed, step),
 BATCH_STREAM)`` (``repro_torch.core.mf.fold_in``, a SplitMix64 mix — never
 CPython ``hash``, whose string hashes are salted per process).  A run
 restarted at step N therefore sees exactly the batches it would have seen.
-The dataset's ``train_pos`` is uploaded once (:func:`device_cf_dataset`), so
-steady-state training copies nothing from the host per step.
+The dataset's ``train_pos`` and its items' interaction counts (the
+``popularity`` sampler's weights) are uploaded once
+(:func:`device_cf_dataset`), so steady-state training copies nothing from
+the host per step.  :func:`cf_batch` is the same draw from the host dataset,
+and :func:`procedural_cf_batch` draws batches of any table size without a
+dataset.
 """
 from __future__ import annotations
 
@@ -16,7 +20,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.core.mf import Batch, fold_in, generator
+from repro_torch.core.mf import Batch, fold_in, generator, resolve_device
 
 #: salt separating the batch draw from the step's own draws (which use
 #: ``fold_in(seed, step)`` directly).
@@ -82,21 +86,30 @@ def synth_cf_dataset(num_users: int, num_items: int, *, seed: int = 0,
 @dataclasses.dataclass(frozen=True)
 class DeviceCFDataset:
     """Device-resident view of a :class:`CFDataset`: ``train_pos`` (int64)
-    lives on the device the batches are drawn on."""
+    and ``item_weights`` ((num_items,) fp32 interaction counts, the
+    ``popularity`` sampler's weights) live on the device the batches are
+    drawn on."""
 
     num_users: int
     num_items: int
     train_pos: torch.Tensor
+    item_weights: torch.Tensor
 
 
 def device_cf_dataset(ds: CFDataset, device) -> DeviceCFDataset:
-    """Upload ``train_pos`` once, ahead of the epoch.  Raises when every
-    user is empty (every batch row would be fallback noise)."""
+    """Upload ``train_pos`` and the items' training-interaction counts once,
+    ahead of the epoch (the counts as the reference's ``device_cf_dataset``
+    makes them).  Raises when every user is empty (every batch row would be
+    fallback noise)."""
     if ds.num_users > 0 and not (ds.train_pos >= 0).any():
         raise ValueError("every user has zero train interactions — an "
                          "offline device view would sample pure fallback noise")
+    counts = np.bincount(ds.train_pos[ds.train_pos >= 0].ravel(),
+                         minlength=ds.num_items)
     return DeviceCFDataset(ds.num_users, ds.num_items,
                            torch.as_tensor(ds.train_pos, dtype=torch.int64,
+                                           device=device),
+                           torch.as_tensor(counts, dtype=torch.float32,
                                            device=device))
 
 
@@ -111,14 +124,34 @@ def cf_batch_device(ds: DeviceCFDataset, seed: int, step: int,
     ``history_len`` train columns as history (``train_pos[users,
     :history_len]``, so at most the dataset's width), padding masked out and
     pointed at item 0, as the reference's ``_cf_batch_from``."""
-    train_pos = ds.train_pos
+    return _batch_from(ds.train_pos, ds.num_users, ds.num_items, seed, step,
+                       batch_size, history_len)
+
+
+def cf_batch(ds: CFDataset, step: int, batch_size: int, history_len: int = 0,
+             seed: int = 0, *, device=None) -> Batch:
+    """The batch of :func:`cf_batch_device` from the host dataset, bit for
+    bit: ``train_pos`` is uploaded to ``device`` (the card unless the
+    caller names another; see ``mf.resolve_device``) on every call, so a
+    loop holds a :func:`device_cf_dataset` view instead."""
+    train_pos = torch.as_tensor(ds.train_pos, dtype=torch.int64,
+                                device=resolve_device(device))
+    return _batch_from(train_pos, ds.num_users, ds.num_items, seed, step,
+                       batch_size, history_len)
+
+
+def _batch_from(train_pos: torch.Tensor, num_users: int, num_items: int,
+                seed: int, step: int, batch_size: int,
+                history_len: int) -> Batch:
+    """The one (seed, step)-pure batch draw behind :func:`cf_batch_device`
+    and :func:`cf_batch`."""
     gen = generator(fold_in(fold_in(seed, step), BATCH_STREAM),
                     train_pos.device)
-    users = torch.randint(0, ds.num_users, (batch_size,), generator=gen,
+    users = torch.randint(0, num_users, (batch_size,), generator=gen,
                           device=train_pos.device)
     cols = torch.randint(0, train_pos.shape[1], (batch_size,), generator=gen,
                          device=train_pos.device)
-    uniform = torch.randint(0, ds.num_items, (batch_size,), generator=gen,
+    uniform = torch.randint(0, num_items, (batch_size,), generator=gen,
                             device=train_pos.device)
     pos = train_pos[users, cols]
     pos = torch.where(pos >= 0, pos, train_pos[users, 0])
@@ -130,6 +163,26 @@ def cf_batch_device(ds: DeviceCFDataset, seed: int, step: int,
         hist_ids = torch.where(h >= 0, h, 0)
     return Batch(user_ids=users, pos_ids=pos, hist_ids=hist_ids,
                  hist_mask=hist_mask)
+
+
+def procedural_cf_batch(step: int, batch_size: int, num_users: int,
+                        num_items: int, num_clusters: int = 64, seed: int = 0,
+                        *, device=None) -> Batch:
+    """Batches at any table size without a dataset, pure in (seed, step):
+    users uniform, user u in cluster ``u % num_clusters``, its positive at a
+    power-law offset ``floor(block * v^3)`` (fp32, ``v`` uniform) into that
+    cluster's contiguous block of ``num_items // num_clusters`` items, as
+    the reference draws it.  Drawn on ``device`` (the card unless the caller
+    names another)."""
+    dev = resolve_device(device)
+    gen = generator(fold_in(fold_in(seed, step), BATCH_STREAM), dev)
+    users = torch.randint(0, num_users, (batch_size,), generator=gen,
+                          device=dev)
+    v = torch.rand((batch_size,), generator=gen, device=dev)
+    block = max(num_items // num_clusters, 1)
+    offset = torch.clamp_max((block * v ** 3).to(torch.int64), block - 1)
+    pos = (users % num_clusters) * block + offset
+    return Batch(user_ids=users, pos_ids=torch.clamp_max(pos, num_items - 1))
 
 
 def lm_batch(step: int, batch_size: int, seq_len: int, vocab: int,

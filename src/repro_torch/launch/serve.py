@@ -1,0 +1,150 @@
+"""Serving launcher of the port: MF top-k recommendation serving
+(``src/repro/launch/serve.py --mf``).
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --mf --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --mf --pruner tile \\
+        --expand-tiles 4 --max-batch 32 --max-wait-ms 2      # on the card
+
+Trains briefly, then serves concurrent single-user requests through a
+:class:`~repro_torch.launch.server.BatchingRecommender` with each pruner asked
+for (``--pruner both``, the default, runs the exact and the tile pruner in
+turn) and refreshes it from a second trained state.  The reference ends with
+two rounds of its streaming service instead; streaming waits for ROADMAP.md
+A.3.  The LM's prefill/decode serving waits for A.6: without ``--mf`` the
+launcher raises.  Runs on the card unless ``--device cpu`` is given.
+"""
+from __future__ import annotations
+
+import argparse
+import threading
+import time
+
+
+def serve_mf(args, device) -> None:
+    """Train, serve concurrent requests with each pruner, refresh."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import mf, retrieval
+    from repro_torch.core.engine import resolve_engine
+    from repro_torch.data import pipeline
+    from repro_torch.launch.server import BatchingRecommender
+    from repro_torch.train import trainer
+
+    users, items = 1000, 2000
+    ds = pipeline.synth_cf_dataset(users, items, interactions_per_user=16,
+                                   num_clusters=16, seed=0)
+    cfg = mf.MFConfig(num_users=users, num_items=items, emb_dim=64,
+                      num_negatives=32, lr=0.1, tile_size=256,
+                      refresh_interval=128,
+                      backend=args.backend or "fused",
+                      sampler=args.sampler or "auto")
+    engine = resolve_engine(cfg)
+    print(f"[serve] MF engine: {engine.name} (device={device})")
+    states = [trainer.train_mf(cfg, ds, steps=args.train_steps,
+                               batch_size=128, seed=seed, engine=engine,
+                               steps_per_dispatch=16, device=device,
+                               log=lambda *_: None)[0]
+              for seed in (0, 1)]
+    train_mask = torch.as_tensor(ds.train_mask(), device=device)
+    rng = np.random.default_rng(0)
+
+    for pruner in (("exact", "tile") if args.pruner == "both" else (args.pruner,)):
+        index = None
+        if pruner == "tile":
+            index = retrieval.build_retrieval_index(states[0].params.item_table,
+                                                    tile_rows=args.tile_rows)
+            print(f"[serve] pruner=tile: {index.num_tiles} tiles x "
+                  f"{index.tile_rows} rows, expanding {args.expand_tiles}")
+        t0 = time.perf_counter()
+        server = BatchingRecommender(
+            states[0], args.topk, pruner=pruner, index=index,
+            expand_tiles=args.expand_tiles, max_batch=args.max_batch,
+            max_wait_ms=args.max_wait_ms, item_chunk=args.item_chunk,
+            exclude_mask=train_mask, log=print)
+        print(f"[serve] {pruner}: warmup in "
+              f"{1e3 * (time.perf_counter() - t0):.1f} ms; call shapes "
+              f"{server.trace_count}")
+        lat_ms, lock = [], threading.Lock()
+
+        def client(uid: int):
+            t = time.perf_counter()
+            server.recommend(uid)
+            with lock:
+                lat_ms.append(1e3 * (time.perf_counter() - t))
+
+        n_requests = 256
+        threads = [threading.Thread(target=client,
+                                    args=(int(rng.integers(0, users)),))
+                   for _ in range(n_requests)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        wall = time.perf_counter() - t0
+        lat = np.sort(lat_ms)
+        stats = server.stats
+        print(f"[serve] {pruner}: {n_requests} concurrent requests in "
+              f"{wall * 1e3:.1f} ms: qps={n_requests / wall:,.0f} "
+              f"p50={lat[len(lat) // 2]:.2f} ms "
+              f"p99={lat[int(len(lat) * 0.99)]:.2f} ms "
+              f"({stats['device_calls']} device calls, call shapes "
+              f"{stats['traces']})")
+        uid = int(rng.integers(0, users))
+        before = server.recommend(uid)
+        server.refresh_from(states[1])
+        after = server.recommend(uid)
+        print(f"[serve] {pruner}: top-{args.topk} for user {uid}: {before[:5]}; "
+              f"after refresh_from a second trained state: {after[:5]} "
+              f"(health {server.health['status']}, call shapes "
+              f"{server.trace_count})")
+        server.stop()
+    print("[serve] the reference's two streaming rounds wait for ROADMAP.md "
+          "A.3 (streaming); the server was refreshed from a second train_mf "
+          "state instead")
+
+
+def main(argv=None):
+    """CLI entry: MF top-k serving with ``--mf``."""
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--mf", action="store_true",
+                    help="serve MF top-k recommendations (LM decoding waits "
+                         "for ROADMAP.md A.6)")
+    ap.add_argument("--topk", type=int, default=10)
+    ap.add_argument("--item-chunk", type=int, default=512,
+                    help="catalog chunk of the exact pruner's running top-k")
+    ap.add_argument("--pruner", choices=("exact", "tile", "both"),
+                    default="both",
+                    help="exact: chunked full-catalog top-k; tile: "
+                         "tile-pruned candidates (retrieval.topk_pruned); "
+                         "both: one after the other")
+    ap.add_argument("--expand-tiles", type=int, default=4,
+                    help="tiles whose members the tile pruner scores")
+    ap.add_argument("--tile-rows", type=int, default=128,
+                    help="index tile size (rows per tile)")
+    ap.add_argument("--max-batch", type=int, default=32,
+                    help="requests coalesced into one device call at most")
+    ap.add_argument("--max-wait-ms", type=float, default=2.0,
+                    help="longest wait for a fuller batch")
+    ap.add_argument("--train-steps", type=int, default=300)
+    ap.add_argument("--backend", default=None)
+    ap.add_argument("--sampler", default=None)
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                    help="cuda (default) serves on the card; cpu runs the "
+                         "plain path")
+    args = ap.parse_args(argv)
+    if not args.mf:
+        raise NotImplementedError(
+            "LM serving (prefill/decode_step with KV caches) is not ported "
+            "yet: it waits for ROADMAP.md A.6; pass --mf for MF serving")
+    from repro_torch.core.mf import resolve_device
+    try:
+        device = resolve_device(args.device)
+    except RuntimeError as e:
+        ap.error(str(e))
+    serve_mf(args, device)
+
+
+if __name__ == "__main__":
+    main()

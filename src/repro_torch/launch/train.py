@@ -10,6 +10,9 @@ without the mesh).
         --backend pallas --update-impl pallas            # MF_100M on the card
     PYTHONPATH=src python -m repro_torch.launch.train --mf --reduced --steps 20 \\
         --device cpu                                      # plain path, CPU
+    PYTHONPATH=src python -m repro_torch.launch.train --mf --reduced --steps 5 \\
+        --backend simplex_bmm --update-impl dense --sampler uniform \\
+        --device cpu                        # the SimpleX baseline (Table 1)
     PYTHONPATH=src python -m repro_torch.launch.train --mf --reduced --steps 40 \\
         --table-format int8 --ckpt-dir DIR --ckpt-every 10 \\
         --fail-at-step 25 --device cpu       # int8, crash and resume
@@ -47,14 +50,16 @@ def main(argv=None):
                          "window")
     ap.add_argument("--backend", default=None,
                     help="loss backend (engine.LOSS_IMPLS): fused, autodiff, "
-                         "pallas (the CUDA kernels) — for the MF engine and "
-                         "the LM HEAT head alike")
+                         "simplex_bmm, mse_dot, pallas (the CUDA kernels) — "
+                         "for the MF engine and the LM HEAT head alike")
     ap.add_argument("--update-impl", default=None,
-                    help="row-update impl: scatter_add, pallas (the CUDA "
-                         "kernel)")
+                    help="MF row-update impl: scatter_add, pallas (the CUDA "
+                         "kernel), dense")
     ap.add_argument("--sampler", default=None,
-                    choices=["auto", "uniform", "tile"],
-                    help="negative-sampling strategy (default: auto)")
+                    choices=["auto", "uniform", "tile", "popularity",
+                             "in_batch"],
+                    help="negative-sampling strategy (engine.SAMPLERS, "
+                         "default: auto)")
     ap.add_argument("--table-format", default=None, choices=["fp32", "int8"],
                     help="embedding-table storage: fp32 (default) or int8 + "
                          "per-row scales with stochastic-rounded updates "

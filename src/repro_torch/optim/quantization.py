@@ -64,6 +64,11 @@ class QuantizedTable(NamedTuple):
         """Logical element dtype (what dequantized rows come out as)."""
         return self.scale.dtype
 
+    @property
+    def device(self) -> torch.device:
+        """The device the table lives on."""
+        return self.q.device
+
 
 Table = Union[torch.Tensor, QuantizedTable]
 
@@ -149,6 +154,55 @@ def slice_rows(table: Table, start: int, stop: int) -> torch.Tensor:
     if not isinstance(table, QuantizedTable):
         return table[start:stop]
     return gather_dequant_rows_plain(table.q, table.scale, slice(start, stop))
+
+
+def pad_rows(table: Table, pad: int) -> Table:
+    """The table with ``pad`` zero rows appended (a copy); an int8 table's
+    padding has zero payloads and the floor scale, so it dequantizes to
+    zeros."""
+    if pad == 0:
+        return table
+    if not isinstance(table, QuantizedTable):
+        return torch.nn.functional.pad(table, (0, 0, 0, pad))
+    return QuantizedTable(
+        q=torch.nn.functional.pad(table.q, (0, 0, 0, pad)),
+        scale=torch.nn.functional.pad(table.scale, (0, 0, 0, pad),
+                                      value=SCALE_FLOOR),
+        err=torch.nn.functional.pad(table.err, (0, 0, 0, pad)),
+        err_scale=torch.nn.functional.pad(table.err_scale, (0, 0, 0, pad),
+                                          value=SCALE_FLOOR))
+
+
+def dynamic_slice_rows(table: Table, start: int, count: int) -> torch.Tensor:
+    """``count`` rows from ``start`` as fp32-equivalent rows, indexed as
+    ``lax.dynamic_slice_in_dim`` indexes: a negative ``start`` counts from
+    the end, then ``start`` moves into ``[0, R - count]``, so the slice
+    always holds ``count`` rows."""
+    rows, start = num_rows(table), int(start)
+    start = min(max(start + rows if start < 0 else start, 0), rows - count)
+    return slice_rows(table, start, start + count)
+
+
+def table_spec(tree):
+    """Hashable ``(structure, ((shape, dtype), ...))`` of a table or a
+    tuple/list of tables, a :class:`QuantizedTable` counting as its four
+    leaves: tells fp32 from int8 layouts and mismatched shapes, which is
+    what ``BatchingRecommender`` checks a refresh against.  Dtypes are
+    named as numpy names them (``float32``, ``int8``)."""
+    leaves = []
+
+    def walk(t) -> str:
+        if isinstance(t, QuantizedTable):
+            leaves.extend(t)
+            return "QuantizedTable(q, scale, err, err_scale)"
+        if isinstance(t, (tuple, list)):
+            return "(" + ", ".join(walk(x) for x in t) + ")"
+        leaves.append(t)
+        return "*"
+
+    structure = walk(tree)
+    return (structure, tuple((tuple(x.shape), str(x.dtype).removeprefix("torch."))
+                             for x in leaves))
 
 
 def table_nbytes(table: Table) -> int:

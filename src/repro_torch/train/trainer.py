@@ -91,7 +91,7 @@ def run_window(executor: EpochExecutor, state, step: int, stop: int,
 
 def train_mf(cfg: mf.MFConfig, ds: pipeline.CFDataset, steps: int, *,
              batch_size: int = 256, seed: int = 0,
-             engine: Optional[StepEngine] = None,
+             engine: Optional[StepEngine] = None, item_weights=None,
              ckpt_dir: Optional[str] = None, ckpt_every: int = 200,
              fail_at_step: Optional[int] = None,
              steps_per_dispatch: int = 1, device=None,
@@ -104,6 +104,9 @@ def train_mf(cfg: mf.MFConfig, ds: pipeline.CFDataset, steps: int, *,
     raises.  ``engine`` defaults to the one ``cfg`` names.  The dataset is
     uploaded once and batches (with ``cfg.history_len`` history columns) are
     drawn on the device, ``steps_per_dispatch`` steps per window.
+    ``item_weights`` ((I,)) feeds the ``popularity`` sampler; with that
+    sampler and none given, the dataset's interaction counts
+    (``DeviceCFDataset.item_weights``) are used, as in the reference.
 
     With ``ckpt_dir`` the run resumes from its latest checkpoint, saves
     every ``ckpt_every`` steps, and on a :class:`SimulatedFailure` (armed by
@@ -115,13 +118,16 @@ def train_mf(cfg: mf.MFConfig, ds: pipeline.CFDataset, steps: int, *,
         engine = resolve_engine(cfg)
     state = mf.init_mf(seed, cfg, device=dev)
     dds = pipeline.device_cf_dataset(ds, dev)
+    if item_weights is None and engine.sampler_name == "popularity":
+        item_weights = dds.item_weights
 
     def batch_fn(step):
         return pipeline.cf_batch_device(dds, seed, step, batch_size,
                                         cfg.history_len)
 
     executor = EpochExecutor(
-        mf.make_scan_body(cfg, batch_fn, seed, engine=engine),
+        mf.make_scan_body(cfg, batch_fn, seed, engine=engine,
+                          item_weights=item_weights),
         steps_per_dispatch)
     start = 0
     if ckpt_dir and ckpt.latest_step(ckpt_dir) is not None:

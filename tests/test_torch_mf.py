@@ -311,21 +311,39 @@ def test_configs_match_reference():
             == [(f.name, f.default) for f in dataclasses.fields(jmf.MFConfig)])
 
 
-@pytest.mark.parametrize("field,name,in_reference", [
-    ("backend", "nope", False), ("backend", "simplex_bmm", True),
-    ("update_impl", "dense", True), ("sampler", "popularity", True)])
-def test_unported_names_raise_reference_error(field, name, in_reference):
-    """Names the port lacks raise the reference's ValueError, listing what
-    the port has; a name neither package has reads the same in both."""
+@pytest.mark.parametrize("field,name", [("backend", "nope")])
+def test_unported_names_raise_reference_error(field, name):
+    """A name neither package has raises the same ValueError in both,
+    listing the registry (which is the reference's)."""
     prefix = f"unknown {field} {name!r}; available: "
     with pytest.raises(ValueError) as ours:
         teng.resolve_engine(None, **{field: name})
     assert str(ours.value) == prefix + str(sorted(
         teng.available_backends()[field]))
-    if not in_reference:
-        with pytest.raises(ValueError) as theirs:
-            jeng.resolve_engine(None, **{field: name})
-        assert str(theirs.value).startswith(prefix)
+    with pytest.raises(ValueError) as theirs:
+        jeng.resolve_engine(None, **{field: name})
+    assert str(theirs.value) == str(ours.value)
+
+
+#: every name of the reference's registries: 5 losses, 3 row updates and 5
+#: samplers.
+REFERENCE_NAMES = [(field, name)
+                   for field, names in jeng.available_backends().items()
+                   for name in names]
+
+
+@pytest.mark.parametrize("field,name", REFERENCE_NAMES)
+def test_every_reference_name_resolves_in_the_port(field, name):
+    engine = teng.resolve_engine(None, **{field: name})
+    attr = {"backend": "backend", "update_impl": "update_impl",
+            "sampler": "sampler_name"}[field]
+    assert getattr(engine, attr) == name
+    assert engine.name.split("+")[("backend", "update_impl", "sampler").index(field)] == name
+
+
+def test_registries_equal_the_reference():
+    assert len(REFERENCE_NAMES) == 13
+    assert teng.available_backends() == jeng.available_backends()
 
 
 @pytest.mark.parametrize("entry", ["init_mf", "resolve_engine"])

@@ -2,7 +2,7 @@
 """Where the time of the port's redesigned kernels goes, on one CUDA card.
 
     python3 tools/probe_kernels.py [--parts stats,bwd,bwd_mf,stats_mf,flash,ties,dequant,
-                                            segment_sum,launches,step_stats] [--earlier DIR]
+                                            segment_sum,launches,step_stats,l2] [--earlier DIR]
 
 Each part prints one line per measurement with the card's name and power
 limit; the last line is the card alone.  Needs the card; imports nothing of
@@ -93,6 +93,16 @@ otherwise.
   the order current, earlier, earlier, current: the step's device time and
   the stats kernel's, per step.
 
+- ``l2``: the L2's read rate, which sets ``core/tiling.py``'s
+  ``HardwareModel.cache_bandwidth``: a kernel (``L2_READ_SRC``, built here)
+  whose threads reread a buffer that fits in the L2 with 16-byte loads that
+  bypass L1 (``__ldcg``), at each of ``L2_SIZES_MB`` and launch shapes
+  ``L2_LAUNCHES``, in two sweeps (sizes rising, then falling), and at 1 GB
+  (from HBM) for comparison; bytes read (4 GB a call, after a warm-up
+  call) over the median, p10 and p90 of 20 CUDA-event timings, beside the
+  card's ``L2_cache_size``.  Its last line is the default: the median over
+  ``L2_DEFAULT_MB`` of each size's best launch shape, mean of the sweeps.
+
 ``--earlier DIR`` names the root of an earlier checkout of this repository
 (for example ``git archive`` of a parent commit unpacked under ``build/``):
 parts ``bwd_mf``, ``stats_mf``, ``step_stats`` and ``dequant`` then also
@@ -119,7 +129,7 @@ ROWS, B = 400_000, 1024
 AMAZON_USERS = 20_980_000
 AMAZON_ITEMS = 9_350_000
 PARTS = ("stats", "bwd", "bwd_mf", "stats_mf", "flash", "ties", "dequant", "segment_sum",
-         "launches", "step_stats")
+         "launches", "step_stats", "l2")
 ATTEMPTS = os.path.join(CSRC, "attempts")
 _BWD_MF_ARGS = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 3 + [ctypes.c_float] * 2 + [
     ctypes.c_void_p]
@@ -836,6 +846,120 @@ def part_launches(dev, card: str) -> None:
                   f"{op}: {kinds}", flush=True)
 
 
+#: part ``l2``: every thread sums the float4s of its grid-stride positions,
+#: ``passes`` times over, with L1-bypassing loads (``ld.global.cg``), four
+#: loads in flight; one float a thread is written so nothing is elided.
+L2_READ_SRC = r"""
+#include <cuda_runtime.h>
+
+__global__ void l2_read_kernel(const float4* __restrict__ buf, long long n4,
+                               int passes, float* __restrict__ out) {
+  const long long tid = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
+  for (int p = 0; p < passes; ++p) {
+    long long i = tid;
+    for (; i + 3 * stride < n4; i += 4 * stride) {
+      float4 v0 = __ldcg(buf + i), v1 = __ldcg(buf + i + stride);
+      float4 v2 = __ldcg(buf + i + 2 * stride), v3 = __ldcg(buf + i + 3 * stride);
+      a0 += v0.x + v0.y + v0.z + v0.w;
+      a1 += v1.x + v1.y + v1.z + v1.w;
+      a2 += v2.x + v2.y + v2.z + v2.w;
+      a3 += v3.x + v3.y + v3.z + v3.w;
+    }
+    for (; i < n4; i += stride) {
+      float4 v = __ldcg(buf + i);
+      a0 += v.x + v.y + v.z + v.w;
+    }
+  }
+  out[tid] = a0 + a1 + a2 + a3;
+}
+
+extern "C" int l2_read(const void* buf, long long n4, int passes, void* out,
+                       int blocks, int threads, void* stream) {
+  l2_read_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+      (const float4*)buf, n4, passes, (float*)out);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+#: part ``l2``: buffer sizes in MB (all well inside the H100's 50 MB L2,
+#: then 1 GB from HBM), launch shapes (blocks an SM, threads a block), the
+#: bytes each timed call reads, and the sizes whose rates set the default.
+L2_SIZES_MB = (4, 8, 12, 16, 20, 24, 28, 32, 40)
+L2_HBM_MB = 1024
+L2_LAUNCHES = ((4, 256), (8, 256), (4, 512))
+L2_CALL_BYTES = 4 << 30
+L2_DEFAULT_MB = (4, 32)
+
+
+def part_l2(dev, card: str) -> None:
+    """The L2's read rate: rereads of buffers that fit in it, at several
+    sizes and launch shapes, in two sweeps (sizes rising, then falling) so
+    that a difference between sizes can be told from noise; then one
+    buffer that does not fit.  Each size's rate is its best launch shape's
+    median (the kernel's own limits are not the L2's), the mean of the two
+    sweeps; the default is the median of those over ``L2_DEFAULT_MB``."""
+    import torch
+    fn = bind(build({"l2_read": (L2_READ_SRC, ())}, "l2")["l2_read"], "l2_read",
+              [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+               ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    props = torch.cuda.get_device_properties(dev)
+    sms = props.multi_processor_count
+    out = torch.empty(max(b * t for b, t in L2_LAUNCHES) * sms, device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    print(f"l2: L2_cache_size {props.L2_cache_size} bytes, {sms} SMs | {card}", flush=True)
+
+    def rate(mb: int, blocks: int, threads: int):
+        buf = torch.ones(mb * (1 << 20) // 4, device=dev)
+        passes = max(L2_CALL_BYTES // (mb << 20), 1)
+
+        def call():
+            rc = fn(buf.data_ptr(), buf.numel() // 4, passes, out.data_ptr(),
+                    blocks * sms, threads, stream)
+            if rc != 0:
+                raise RuntimeError(f"l2_read launch failed: CUDA error {rc}")
+
+        call()
+        torch.cuda.synchronize()
+        assert float(out[:blocks * sms * threads].double().sum()) == \
+            float(buf.numel()) * passes, "l2_read misread its buffer"
+        times = []
+        for _ in range(20):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            call()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        times.sort()
+        nbytes = buf.numel() * 4 * passes
+        return (nbytes / (statistics.median(times) / 1e3), nbytes / (times[-3] / 1e3),
+                nbytes / (times[2] / 1e3), passes)
+
+    best: dict = {mb: [] for mb in L2_SIZES_MB}
+    for sweep, sizes in enumerate((L2_SIZES_MB, L2_SIZES_MB[::-1]), 1):
+        for mb in sizes:
+            rows = [(rate(mb, b, t), b, t) for b, t in L2_LAUNCHES]
+            for (med, lo, hi, passes), b, t in rows:
+                print(f"l2: sweep {sweep}, {mb} MB read {passes} times, {b} blocks/SM x {t} "
+                      f"threads: {med:.4e} bytes/s median of 20 (p10 {lo:.4e}, p90 "
+                      f"{hi:.4e}) | {card}", flush=True)
+            best[mb].append(max(r[0][0] for r in rows))
+    per_size = {mb: statistics.fmean(v) for mb, v in best.items()}
+    for mb, v in per_size.items():
+        print(f"l2: {mb} MB best launch shape: {best[mb][0]:.4e} / {best[mb][1]:.4e} "
+              f"bytes/s in sweeps 1 / 2, mean {v:.4e} | {card}", flush=True)
+    lo_mb, hi_mb = L2_DEFAULT_MB
+    chosen = statistics.median(v for mb, v in per_size.items() if lo_mb <= mb <= hi_mb)
+    hbm = max(rate(L2_HBM_MB, b, t)[0] for b, t in L2_LAUNCHES)
+    print(f"l2: {L2_HBM_MB} MB (from HBM) best launch shape {hbm:.4e} bytes/s | {card}",
+          flush=True)
+    print(f"l2: read rate {chosen:.4e} bytes/s (median over {lo_mb}-{hi_mb} MB of each "
+          f"size's best launch shape; HardwareModel.cache_bandwidth) | {card}", flush=True)
+
+
 def main() -> int:
     import torch
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -878,6 +1002,8 @@ def main() -> int:
         part_launches(dev, card)
     if "step_stats" in parts:
         part_step_stats(dev, card, args.earlier)
+    if "l2" in parts:
+        part_l2(dev, card)
     print(card)
     return 0
 
