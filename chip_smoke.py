@@ -11,8 +11,11 @@ behavior aggregation, tile 1,024) with int8 tables; through ``train_lm``,
 smollm-360m (32 layers, d=960, vocab 49,152) with the HEAT vocab head on the
 kernel backend; the attention dispatcher ``ops.attention`` at
 smollm-360m's attention shape; the other MF engines (the SimpleX baseline,
-MSE, the popularity and in-batch samplers); and top-k serving through the
-``BatchingRecommender`` with the exact and the tile-pruned retrieval.
+MSE, the popularity and in-batch samplers); top-k serving through the
+``BatchingRecommender`` with the exact and the tile-pruned retrieval; and
+the streaming service (``StreamingTrainer``: ring ingest, train-on-recent
+rounds through kernels #1, #2 and #6, refresh, checkpoints, crash resume,
+the divergence guard and the chaos harness).
 Phases, one line each (a few print more):
 
   1. the card (name and power limit from nvidia-smi);
@@ -123,10 +126,33 @@ Phases, one line each (a few print more):
      wrong-shaped refresh that must leave ``health`` degraded with the
      answers standing, and a good one that restores ok; then the exact
      pruner over the trained int8 ``AMAZON`` tables (9.35M items) for 32
-     users, with ms a call.
+     users, with ms a call; the tile server stays up for phase 17;
+ 17. streaming at ``MF_100M_PALLAS`` width: (a) a cold-start
+     ``StreamingTrainer`` on a drifting ``SyntheticStream`` with a probe
+     (user 1 x the last item, 32 times at event 16,384), 16 rounds of 4,096
+     events and 32 steps of batch 1,024 over a ring of 32 (recency 0.5), a
+     live exact top-10 server refreshed every round and checkpoints every 4
+     rounds: ms a round for ingest, train and refresh, steps/s, a
+     checkpoint's ms, the loss, events/s, freshness (printed, not asserted),
+     peak memory; asserted: finite losses, no guard trip, 32/32/64 launches
+     of the stats, backward and gather-FMA kernels in every round, one
+     window length, one event shape, one call shape; (b) the same run with a
+     failure at event 43,000 (round 11): one restart, and the tables, tile,
+     ring, counters and losses equal to (a)'s bit for bit, then two rounds
+     with no server attached (their train ms against (a)'s) and one more
+     round profiled (device time and launches against (a)'s round wall);
+     (c) the popularity sampler fed the live counts for 8 rounds: the same
+     launches, items first ingested in a round drawn as negatives in the
+     next, two 2-round runs bit for bit; (d) ``launch/serve.py``'s two
+     warm-started streaming rounds on a clone of phase 5's trained state
+     with a cold ring, refreshing phase 16's tile server with its call
+     shapes unchanged; (e) ``run_chaos(seed=0, rounds=10)`` on the card with
+     no problem; (f) ``launch.stream.main`` at 400,000 x 400,000 x 128 on the
+     ``pallas`` backend for 4 rounds, its lines and launches; and the phase's
+     seconds.
 
-Then it prints the kernels' JSON line, the card line, and as its last line
-``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
+Then it prints the total seconds, the kernels' JSON line, the card line, and
+as its last line ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
 exits non-zero with no result line; it also refuses to run without a CUDA
 device.  It imports nothing of JAX or of the JAX package ``repro``.
 """
@@ -830,7 +856,7 @@ ENGINE_STEPS, ENGINE_WINDOW, AMAZON_POP_STEPS = 32, 16, 16
 PLAN_ITERATIONS = 1_000_000
 
 
-def engines_phase(dev, card: str, ds, ds8, counters, cfg0=None, cfg8=None) -> None:
+def engines_phase(dev, card: str, ds, ds8, counters) -> None:
     """Phase 15: each engine of ``ENGINES`` on ``cfg0`` (``MF_100M_PALLAS``),
     ``AMAZON`` int8 with the popularity sampler, and Algorithm 1's plans."""
     import torch
@@ -838,7 +864,7 @@ def engines_phase(dev, card: str, ds, ds8, counters, cfg0=None, cfg8=None) -> No
     from repro_torch.core import mf, tiling
     from repro_torch.data import pipeline
     from repro_torch.train import trainer
-    cfg0 = cfg0 or MF_100M_PALLAS
+    cfg0 = MF_100M_PALLAS
     dds = pipeline.device_cf_dataset(ds, dev)
     kernel_names = ("ccl_stats", "ccl_bwd", "gather_fma")
     results = {}
@@ -901,9 +927,8 @@ def engines_phase(dev, card: str, ds, ds8, counters, cfg0=None, cfg8=None) -> No
     torch.cuda.empty_cache()
 
     # ---- AMAZON int8, popularity over 9.35M items -------------------------
-    cfg8 = cfg8 or dataclasses.replace(AMAZON, backend="pallas", update_impl="pallas",
-                                       table_format="int8")
-    cfg8 = dataclasses.replace(cfg8, sampler="popularity")
+    cfg8 = dataclasses.replace(AMAZON, backend="pallas", update_impl="pallas",
+                               table_format="int8", sampler="popularity")
     dds8 = pipeline.device_cf_dataset(ds8, dev)
     for c in counters:
         c.reset()
@@ -992,11 +1017,11 @@ def serve_load(server, users, n: int, seed: int = 16):
     return n / wall, lat[n // 2], lat[int(0.99 * n)], answers
 
 
-def serving_phase(dev, card: str, ds, mf_trained, amazon, amazon_users, counters,
-                  cfg0=None) -> None:
+def serving_phase(dev, card: str, ds, mf_trained, amazon, amazon_users, counters):
     """Phase 16: the retrieval index, the tile pruner against the exact
     top-k, both servers under concurrent load, refreshes, and an exact
-    serve over the int8 AMAZON tables."""
+    serve over the int8 AMAZON tables.  Returns the tile-pruned server,
+    still serving, for phase 17's streaming refresh."""
     import numpy as np
     import torch
     from repro_torch.configs.heat_mf import MF_100M_PALLAS
@@ -1005,7 +1030,7 @@ def serving_phase(dev, card: str, ds, mf_trained, amazon, amazon_users, counters
     from repro_torch.launch.server import BatchingRecommender
     from repro_torch.optim import quantization as qz
     from repro_torch.train import trainer
-    cfg0 = cfg0 or MF_100M_PALLAS
+    cfg0 = MF_100M_PALLAS
     params = mf.MFParams(mf_trained.user_table.to(dev), mf_trained.item_table.to(dev), None)
     n_users, n_items = ds.num_users, qz.num_rows(params.item_table)
     train = torch.from_numpy(ds.train_mask()).to(dev)
@@ -1111,49 +1136,50 @@ def serving_phase(dev, card: str, ds, mf_trained, amazon, amazon_users, counters
                                  exclude_mask=train[ids]).cpu().numpy()
 
     for pruner in ("exact", "tile"):
-        with BatchingRecommender(state, SERVE_K, pruner=pruner,
-                                 index=index if pruner == "tile" else None,
-                                 expand_tiles=SERVE_EXPAND, max_batch=SERVE_MAX_BATCH,
-                                 max_wait_ms=SERVE_WAIT_MS, item_chunk=EVAL_CHUNK,
-                                 exclude_mask=train) as server:
-            qps, p50, p99, answers = serve_load(server, np.arange(n_users), SERVE_REQUESTS)
-            calls = server.stats["device_calls"]
-            assert server.trace_count == 1, server.trace_count
-            call_ms = []
-            for _ in range(10):
-                t0 = time.perf_counter()
-                first = server.recommend_many(probe)
-                call_ms.append(1e3 * (time.perf_counter() - t0))
-            assert np.array_equal(first, direct(params, index, pruner)), \
-                f"{pruner}: recommend_many differs from the direct top-k"
-            assert all(np.array_equal(answers[u], first[u]) for u in answers
-                       if u < SERVE_MAX_BATCH), f"{pruner}: a coalesced answer differs"
-            # refresh_from a second trained state: the answers move to its top-k,
-            # and training that state further changes nothing served.
-            assert server.refresh_from(second, on_error="raise")
-            idx2 = (retrieval.refresh_index(index, second.params.item_table)
-                    if pruner == "tile" else None)
-            want2 = direct(second.params, idx2, pruner)
-            got2 = server.recommend_many(probe)
-            assert np.array_equal(got2, want2), f"{pruner}: refreshed answers differ"
-            assert not np.array_equal(got2, first), f"{pruner}: the refresh moved nothing"
-            before = second.params.item_table.clone()
-            second, _ = more.run(second, ENGINE_STEPS, ENGINE_WINDOW)
-            torch.cuda.synchronize()
-            assert not torch.equal(before, second.params.item_table), "no step moved"
-            assert np.array_equal(server.recommend_many(probe), got2), \
-                f"{pruner}: training the source moved the served answers"
-            del before
-            # A wrong-shaped refresh degrades and keeps the answers; the next
-            # good one restores ok.
-            bad = mf.MFState(mf.MFParams(second.params.user_table[:100],
-                                         second.params.item_table, None), None, None, 0)
-            assert not server.refresh_from(bad)
-            health = server.health
-            assert health["status"] == "degraded" and health["refresh_failures"] == 1, health
-            assert np.array_equal(server.recommend_many(probe), got2)
-            assert server.refresh_from(second) and server.health["status"] == "ok"
-            assert server.trace_count == 1, server.trace_count
+        server = BatchingRecommender(state, SERVE_K, pruner=pruner,
+                                     index=index if pruner == "tile" else None,
+                                     expand_tiles=SERVE_EXPAND,
+                                     max_batch=SERVE_MAX_BATCH,
+                                     max_wait_ms=SERVE_WAIT_MS, item_chunk=EVAL_CHUNK,
+                                     exclude_mask=train)
+        qps, p50, p99, answers = serve_load(server, np.arange(n_users), SERVE_REQUESTS)
+        calls = server.stats["device_calls"]
+        assert server.trace_count == 1, server.trace_count
+        call_ms = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            first = server.recommend_many(probe)
+            call_ms.append(1e3 * (time.perf_counter() - t0))
+        assert np.array_equal(first, direct(params, index, pruner)), \
+            f"{pruner}: recommend_many differs from the direct top-k"
+        assert all(np.array_equal(answers[u], first[u]) for u in answers
+                   if u < SERVE_MAX_BATCH), f"{pruner}: a coalesced answer differs"
+        # refresh_from a second trained state: the answers move to its top-k,
+        # and training that state further changes nothing served.
+        assert server.refresh_from(second, on_error="raise")
+        idx2 = (retrieval.refresh_index(index, second.params.item_table)
+                if pruner == "tile" else None)
+        want2 = direct(second.params, idx2, pruner)
+        got2 = server.recommend_many(probe)
+        assert np.array_equal(got2, want2), f"{pruner}: refreshed answers differ"
+        assert not np.array_equal(got2, first), f"{pruner}: the refresh moved nothing"
+        before = second.params.item_table.clone()
+        second, _ = more.run(second, ENGINE_STEPS, ENGINE_WINDOW)
+        torch.cuda.synchronize()
+        assert not torch.equal(before, second.params.item_table), "no step moved"
+        assert np.array_equal(server.recommend_many(probe), got2), \
+            f"{pruner}: training the source moved the served answers"
+        del before
+        # A wrong-shaped refresh degrades and keeps the answers; the next
+        # good one restores ok.
+        bad = mf.MFState(mf.MFParams(second.params.user_table[:100],
+                                     second.params.item_table, None), None, None, 0)
+        assert not server.refresh_from(bad)
+        health = server.health
+        assert health["status"] == "degraded" and health["refresh_failures"] == 1, health
+        assert np.array_equal(server.recommend_many(probe), got2)
+        assert server.refresh_from(second) and server.health["status"] == "ok"
+        assert server.trace_count == 1, server.trace_count
         print(f"[16 serve] BatchingRecommender pruner={pruner} (k={SERVE_K}, max_batch "
               f"{SERVE_MAX_BATCH}, max_wait {SERVE_WAIT_MS} ms"
               + (f", {SERVE_EXPAND} tiles" if pruner == "tile" else
@@ -1169,6 +1195,9 @@ def serving_phase(dev, card: str, ds, mf_trained, amazon, amazon_users, counters
               f"wrong-shaped refresh left status "
               f"degraded ({health['last_refresh_error'][:60]}...) and the answers, the "
               f"next good one restored ok | {card}", flush=True)
+        if pruner == "exact":
+            server.stop()
+    tile_server = server
     del second, state, params, index, train, dds
     torch.cuda.empty_cache()
 
@@ -1198,6 +1227,346 @@ def serving_phase(dev, card: str, ds, mf_trained, amazon, amazon_users, counters
           f"call (median of 3: {', '.join(f'{t:.1f}' for t in times)}), equal to the "
           f"direct top-k; the port's kernels launched by this serve: {launches} | {card}",
           flush=True)
+    return tile_server
+
+
+#: phase 17: the streaming run of MF_100M_PALLAS: ring capacity, events and
+#: steps a round, rounds, recency, the probe (at event 16,384: user 1, the
+#: last item, 32 times), checkpoints every 4 rounds, the crash of 17b (in
+#: round 11), the popularity rounds of 17c and the CLI's rounds of 17f.
+STREAM_CAP, STREAM_EVENTS, STREAM_STEPS, STREAM_ROUNDS = 32, 4096, 32, 16
+STREAM_RECENCY, STREAM_CKPT_EVERY, STREAM_FAIL_AT = 0.5, 4, 43_000
+STREAM_PROBE_AT, STREAM_PROBE_REPEAT, STREAM_TOPK = 16_384, 32, 10
+STREAM_POP_ROUNDS, STREAM_CLI_ROUNDS = 8, 4
+
+
+class RecordingSampler:
+    """Delegates to a sampler and marks, on the device, every item it
+    draws (no host sync), so phase 17c can see which items were drawn."""
+
+    def __init__(self, inner, num_items: int, dev):
+        import torch
+        self.inner = inner
+        self.name = inner.name
+        self.drawn = torch.zeros(num_items, dtype=torch.bool, device=dev)
+
+    def sample(self, state, gen, shape):
+        out = self.inner.sample(state, gen, shape)
+        self.drawn[out.ids.reshape(-1)] = True
+        return out
+
+
+def stream_fingerprint(trainer) -> dict:
+    """Clones of everything a bit-for-bit resume must reproduce: both
+    tables, the ring, the counters and the per-step losses."""
+    d = trainer.data
+    return {"user_table": trainer.state.params.user_table.clone(),
+            "item_table": trainer.state.params.item_table.clone(),
+            "tile_ids": trainer.state.tile.tile_ids.clone(),
+            "tile_emb": trainer.state.tile.tile_emb.clone(),
+            "train_pos": d.train_pos.clone(), "item_weights": d.item_weights.clone(),
+            "row_count": d.row_count.clone(), "write_pos": d.write_pos.clone(),
+            "counters": (trainer.step, trainer.events, trainer.rounds, trainer.salt),
+            "losses": trainer.loss_history()}
+
+
+def streaming_phase(dev, card: str, mf_trained, tile_server, counters) -> None:
+    """Phase 17: the streaming service at MF_100M_PALLAS width (17a), a
+    crash resumed bit for bit (17b), live popularity negatives (17c), the
+    serve launcher's streaming refresh of phase 16's tile server (17d), the
+    chaos harness (17e) and the streaming CLI (17f)."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.heat_mf import MF_100M_PALLAS
+    from repro_torch.core import mf, samplers
+    from repro_torch.core.engine import resolve_engine
+    from repro_torch.data import pipeline
+    from repro_torch.launch import stream as stream_cli
+    from repro_torch.launch.server import BatchingRecommender
+    from repro_torch.resilience.chaos import run_chaos
+    from repro_torch.stream.service import StreamingConfig, StreamingTrainer
+    from repro_torch.stream.sources import ProbeInjector, SyntheticStream
+    cfg0 = MF_100M_PALLAS
+    rounds, events, probe_at = STREAM_ROUNDS, STREAM_EVENTS, STREAM_PROBE_AT
+    n_users, n_items = cfg0.num_users, cfg0.num_items
+    probe_user, probe_item = 1, n_items - 1
+    t_phase = time.perf_counter()
+    logs = []
+
+    def make(ckpt_dir, cfg=cfg0, engine=None, **kw):
+        stream = ProbeInjector(
+            SyntheticStream(n_users, n_items, seed=0, user_drift=0.01, item_drift=0.01),
+            probe_at, probe_user, probe_item, repeat=STREAM_PROBE_REPEAT)
+        scfg = StreamingConfig(capacity=STREAM_CAP, micro_batch=events,
+                               steps_per_round=STREAM_STEPS, batch_size=B,
+                               recency=STREAM_RECENCY, seed=0, ckpt_dir=ckpt_dir,
+                               ckpt_every=STREAM_CKPT_EVERY, **kw)
+        return StreamingTrainer(cfg, stream, scfg, engine=engine, device=dev,
+                                log=logs.append)
+
+    def take_launches():
+        got = {c.name: c.count() for c in counters}
+        for c in counters:
+            c.reset()
+        return got
+
+    per_round = {"ccl_stats": STREAM_STEPS, "ccl_bwd": STREAM_STEPS,
+                 "gather_fma": 2 * STREAM_STEPS, "gather_dequant": 0,
+                 "ccl_stats_shared": 0, "ccl_bwd_shared": 0, "flash_attention": 0}
+
+    # ---- 17a: a cold-start streaming run with a live server ---------------
+    pipeline.APPLY_EVENTS_SHAPES.reset()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as d:
+        trainer = make(d)
+        server = BatchingRecommender(trainer.state, STREAM_TOPK)
+        trainer.recommender = server
+        take_launches()
+        stats, walls = [], []
+        t_probe = fresh_s = fresh_round = None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(rounds):
+            ev0 = trainer.events
+            t_r = time.perf_counter()
+            assert trainer.run(rounds=1) == 1
+            walls.append(time.perf_counter() - t_r)
+            stats.append(dict(trainer.last_round_stats))
+            launches = take_launches()
+            assert launches == per_round, (trainer.rounds, launches)
+            if t_probe is None and ev0 <= probe_at < trainer.events:
+                t_probe = time.perf_counter()
+            if t_probe is not None and fresh_s is None \
+                    and probe_item in server.recommend(probe_user).tolist():
+                fresh_s, fresh_round = time.perf_counter() - t_probe, trainer.rounds
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        assert trainer.rounds == rounds and trainer.rollbacks == 0 and trainer.restarts == 0
+        assert trainer.guard.trips == 0 and trainer.guard.checks == rounds
+        losses = trainer.loss_history()
+        assert len(losses) == rounds * STREAM_STEPS
+        assert all(math.isfinite(x) for x in losses), losses
+        assert trainer.executor.trace_counter.count == 1
+        assert pipeline.APPLY_EVENTS_SHAPES.count == 1
+        assert server.trace_count == 1 and server.health["status"] == "ok"
+        assert server.health["refreshes"] == rounds
+        saved = sorted(os.listdir(d))
+        clean = stream_fingerprint(trainer)
+        server.stop()
+    del trainer, server
+    n_events = rounds * events + STREAM_PROBE_REPEAT
+    ms = {k: [1e3 * s[f"{k}_s"] for s in stats] for k in ("ingest", "train", "refresh")}
+    ckpt_ms = [1e3 * (w - s["ingest_s"] - s["train_s"] - s["refresh_s"])
+               for w, s in zip(walls, stats) if s["round"] % STREAM_CKPT_EVERY == 0]
+    plain_ms = [1e3 * w for w, s in zip(walls, stats) if s["round"] % STREAM_CKPT_EVERY]
+    med = {k: statistics.median(v[1:]) for k, v in ms.items()}
+    fresh = (f"probe served in {fresh_s:.2f} s (round {fresh_round})" if fresh_s is not None
+             else f"probe not served in top-{STREAM_TOPK} within the run")
+    print(f"[17a stream] StreamingTrainer on {cfg0.num_users} x {cfg0.num_items} x "
+          f"{cfg0.emb_dim} ({cfg0.backend}+{cfg0.update_impl}+tile {cfg0.tile_size}, n="
+          f"{cfg0.num_negatives}, lr {cfg0.lr}), cold start: {rounds} rounds of {events} "
+          f"events (SyntheticStream drift 0.01/0.01; probe user {probe_user} x item "
+          f"{probe_item} x{STREAM_PROBE_REPEAT} at event {probe_at}), {STREAM_STEPS} steps "
+          f"of batch {B} a round over a ring of {STREAM_CAP} (recency {STREAM_RECENCY}), "
+          f"a live exact top-{STREAM_TOPK} server refreshed every round, checkpoints every "
+          f"{STREAM_CKPT_EVERY} rounds ({saved}): ms a round (median of rounds 2-{rounds}; "
+          f"round 1) ingest {med['ingest']:.2f} ({ms['ingest'][0]:.2f}), train "
+          f"{med['train']:.2f} ({ms['train'][0]:.2f}) = "
+          f"{STREAM_STEPS / (med['train'] / 1e3):.0f} steps/s, refresh {med['refresh']:.2f} "
+          f"({ms['refresh'][0]:.2f}); train ms by round "
+          f"[{', '.join(f'{t:.0f}' for t in ms['train'])}] (checkpoints after rounds "
+          f"{STREAM_CKPT_EVERY}, {2 * STREAM_CKPT_EVERY}, ...); a round without a checkpoint "
+          f"{statistics.median(plain_ms):.2f} ms wall, a checkpoint "
+          f"{statistics.median(ckpt_ms):.0f} ms (round wall less its parts, median of "
+          f"{len(ckpt_ms)}); loss {losses[0]:.4f} -> {losses[-1]:.4f} (round means "
+          f"{stats[0]['loss']:.4f} -> {stats[-1]['loss']:.4f}), all finite, no guard trip; "
+          f"{n_events} events in {wall:.2f} s = {n_events / wall:,.0f} events/s end to end; "
+          f"freshness: "
+          f"{fresh}; launches a round {per_round['ccl_stats']}/{per_round['ccl_bwd']}/"
+          f"{per_round['gather_fma']} (ccl_stats/ccl_bwd/gather_fma) in every round; window "
+          f"lengths 1, event shapes 1, serving call shapes 1; peak device memory "
+          f"{peak_gb:.2f} GB | {card}", flush=True)
+
+    # ---- 17b: the same run, crashed in round 11 and resumed ---------------
+    with tempfile.TemporaryDirectory() as d:
+        logs.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        crashed = make(d, fail_at_event=STREAM_FAIL_AT)
+        assert crashed.run(rounds=rounds) == rounds
+        torch.cuda.synchronize()
+        t_crash = time.perf_counter() - t0
+        assert crashed.restarts == 1, crashed.restarts
+        assert any("injected failure" in m for m in logs), logs
+        got = stream_fingerprint(crashed)
+        for k, v in clean.items():
+            same = torch.equal(v, got[k]) if isinstance(v, torch.Tensor) else v == got[k]
+            assert same, f"17b: the resumed run differs at {k}"
+        # two more rounds with no server attached (17a refreshes a live one
+        # every round): does its worker thread slow the training steps?
+        detached = []
+        for _ in range(2):
+            crashed.run(rounds=1)
+            detached.append(dict(crashed.last_round_stats))
+        take_launches()
+        # one more round, profiled: device busy time against its wall time
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            crashed.run(rounds=1)
+            torch.cuda.synchronize()
+        kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        busy_us = sum(e.self_device_time_total for e in kern)
+        n_launch = sum(e.count for e in kern)
+        top = sorted(kern, key=lambda e: -e.self_device_time_total)[:5]
+        host = sorted((e for e in prof.key_averages() if e.device_type != DeviceType.CUDA),
+                      key=lambda e: -e.self_cpu_time_total)[:8]
+        take_launches()
+    del crashed, clean, got
+    torch.cuda.empty_cache()
+    round_us = 1e3 * statistics.median(plain_ms)
+    busy = ("the profiler saw no device time: not measured" if busy_us <= 0 else
+            f"a profiled round {busy_us:.0f} us of device time in {n_launch} launches "
+            f"({n_launch / STREAM_STEPS:.0f} a step), {100 * busy_us / round_us:.1f}% of "
+            f"17a's median round wall ({round_us:.0f} us); top: " + ", ".join(
+                f"{e.key[:40]} {e.self_device_time_total:.0f} us" for e in top)
+            + "; host ops by self time a step (under the profiler): " + ", ".join(
+                f"{e.key[:32]} {e.self_cpu_time_total / STREAM_STEPS:.0f} us "
+                f"(x{e.count / STREAM_STEPS:g})" for e in host))
+    print(f"[17b resume] the same run with a failure injected at event {STREAM_FAIL_AT} "
+          f"(round {STREAM_FAIL_AT // events + 1}): restarts 1 ({logs[0][:70]}...), resumed from "
+          f"the round-{(STREAM_FAIL_AT // events) // STREAM_CKPT_EVERY * STREAM_CKPT_EVERY} "
+          f"checkpoint: both tables, the tile, the ring (train_pos, item_weights, "
+          f"row_count, write_pos), the counters and all {rounds * STREAM_STEPS} losses "
+          f"identical bit for bit to 17a's; {t_crash:.1f} s; two more rounds with no "
+          f"server attached: train ms " + ", ".join(
+              f"{1e3 * s['train_s']:.2f}" for s in detached) + " (17a, live server: "
+          f"{med['train']:.2f}), ingest ms " + ", ".join(
+              f"{1e3 * s['ingest_s']:.2f}" for s in detached) + f" (17a: "
+          f"{med['ingest']:.2f}); {busy} | {card}", flush=True)
+
+    # ---- 17c: live popularity negatives -----------------------------------
+    cfg_pop = dataclasses.replace(cfg0, sampler="popularity")
+    engine = resolve_engine(cfg_pop)
+    rec = RecordingSampler(engine.sampler, n_items, dev)
+    trainer = make(None, cfg=cfg_pop, engine=dataclasses.replace(engine, sampler=rec))
+    take_launches()
+    drawn_new = []
+    t0 = time.perf_counter()
+    for r in range(STREAM_POP_ROUNDS):
+        seen = trainer.data.item_weights > 0
+        rec.drawn.zero_()
+        assert trainer.run(rounds=1) == 1
+        assert take_launches() == per_round, r
+        first_seen = (trainer.data.item_weights > 0) & ~seen
+        if r:
+            drawn_new.append(int((rec.drawn & prev_new).sum()))
+        prev_new = first_seen
+    torch.cuda.synchronize()
+    t_pop = time.perf_counter() - t0
+    assert trainer.executor.trace_counter.count == 1 and trainer.guard.trips == 0
+    assert all(math.isfinite(x) for x in trainer.loss_history())
+    assert all(n > 0 for n in drawn_new), drawn_new
+    n_weighted = int((trainer.data.item_weights > 0).sum())
+    del trainer, rec, seen, first_seen, prev_new
+    runs = []
+    for _ in range(2):
+        t = make(None, cfg=cfg_pop)
+        assert t.run(rounds=2) == 2
+        runs.append(stream_fingerprint(t))
+        del t
+    take_launches()
+    for k, v in runs[0].items():
+        same = torch.equal(v, runs[1][k]) if isinstance(v, torch.Tensor) else v == runs[1][k]
+        assert same, f"17c: two 2-round popularity runs differ at {k}"
+    del runs
+    torch.cuda.empty_cache()
+    print(f"[17c popularity] {cfg_pop.backend}+{cfg_pop.update_impl}+popularity fed the "
+          f"live ring counts, {STREAM_POP_ROUNDS} rounds as 17a: launches a round "
+          f"{per_round['ccl_stats']}/{per_round['ccl_bwd']}/{per_round['gather_fma']} in "
+          f"every round, {STREAM_POP_ROUNDS * STREAM_STEPS / t_pop:.0f} steps/s over the run "
+          f"(ingest and refresh of the CDF included); {n_weighted} items with a count at "
+          f"the end; items first ingested in round r drawn as negatives in round r+1: "
+          f"{drawn_new} (r = 1..{STREAM_POP_ROUNDS - 1}); two 2-round runs identical bit for bit "
+          f"| {card}", flush=True)
+
+    # ---- 17d: the serve launcher's streaming refresh of phase 16's server --
+    params = mf.MFParams(mf_trained.user_table.to(dev), mf_trained.item_table.to(dev), None)
+    tile = samplers.tile_init(mf.generator(mf.fold_in(17, 2), dev), params.item_table,
+                              cfg0.tile_size)
+    state = mf.MFState(params, tile, None, STEPS + WINDOW)       # a clone: .to(dev)
+    shapes, refreshes = tile_server.trace_count, tile_server.health["refreshes"]
+    probe = np.arange(SERVE_MAX_BATCH)
+    before = tile_server.recommend_many(probe)
+    live = SyntheticStream(n_users, n_items, seed=1, total=512, user_drift=0.01,
+                           item_drift=0.01)
+    streamer = StreamingTrainer(
+        cfg0, live, StreamingConfig(capacity=16, micro_batch=256, steps_per_round=25,
+                                    batch_size=128, seed=0),
+        state=state, data=pipeline.stream_ring_dataset(n_users, n_items, 16, device=dev),
+        engine=resolve_engine(cfg0), recommender=tile_server, device=dev,
+        log=logs.append)
+    take_launches()
+    assert streamer.run(rounds=2) == 2
+    launches = take_launches()
+    after = tile_server.recommend_many(probe)
+    assert launches["ccl_stats"] == launches["ccl_bwd"] == 50, launches
+    assert launches["gather_fma"] == 100, launches
+    assert tile_server.trace_count == shapes == 1, tile_server.trace_count
+    assert tile_server.health["refreshes"] == refreshes + 2
+    assert tile_server.health["status"] == "ok"
+    assert not np.array_equal(before, after), "17d: the streaming refresh moved nothing"
+    print(f"[17d serve refresh] serve.py's two warm-started streaming rounds (512 live "
+          f"events, 25 steps of batch 128 a round, ring 16, cold) on a clone of phase 5's "
+          f"trained MF_100M_PALLAS, refreshing phase 16's tile-pruned server: "
+          f"{streamer.events} events, {streamer.step} total steps, launches {launches}, "
+          f"server refreshes {refreshes} -> {tile_server.health['refreshes']}, status "
+          f"{tile_server.health['status']}, call shapes {tile_server.trace_count} "
+          f"(unchanged), answers for {SERVE_MAX_BATCH} users moved | {card}", flush=True)
+    tile_server.stop()
+    del streamer, state, params, tile, live
+    torch.cuda.empty_cache()
+
+    # ---- 17e: the chaos harness on the card --------------------------------
+    t0 = time.perf_counter()
+    report = run_chaos(seed=0, rounds=10, device=dev)
+    t_chaos = time.perf_counter() - t0
+    take_launches()
+    assert report["problems"] == [], report["problems"]
+    print(f"[17e chaos] run_chaos(seed=0, rounds=10) at the reference's defaults on the "
+          f"card in {t_chaos:.1f} s: schedule {report['schedule']}; " + "; ".join(
+              f"{f['kind']} round {f['round']} detected and recovered in "
+              f"{1e3 * f['recovery_s']:.1f} ms" for f in report["faults"])
+          + f"; problems []; final {report['final']['rounds']} rounds, rollbacks "
+          f"{report['final']['rollbacks']}, retries {report['final']['stream_retries']}, "
+          f"health {report['final']['health']['status']} | {card}", flush=True)
+
+    # ---- 17f: the streaming CLI on the card --------------------------------
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        stream_cli.main(["--backend", "pallas", "--users", str(n_users), "--items",
+                         str(n_items), "--emb-dim", str(cfg0.emb_dim), "--rounds",
+                         str(STREAM_CLI_ROUNDS)])
+    t_cli = time.perf_counter() - t0
+    launches = take_launches()
+    lines = out.getvalue().strip().splitlines()
+    summary = [ln for ln in lines if " rounds, " in ln and "events/s end-to-end" in ln]
+    assert summary, lines
+    assert launches["ccl_stats"] == launches["ccl_bwd"] > 0, launches
+    for ln in lines:
+        print(f"[17f cli] {ln}", flush=True)
+    print(f"[17f cli] launch.stream.main(--backend pallas --users {n_users} --items "
+          f"{n_items} --emb-dim {cfg0.emb_dim} --rounds {STREAM_CLI_ROUNDS}) on the card in "
+          f"{t_cli:.1f} s; launches {launches} | {card}", flush=True)
+    print(f"[17 stream] phase 17 took {time.perf_counter() - t_phase:.1f} s | {card}",
+          flush=True)
 
 
 def main() -> int:
@@ -1221,6 +1590,7 @@ def main() -> int:
     from repro_torch.train import checkpoint as ckpt
     from repro_torch.train import trainer
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda")
     card = card_line()
     kind = torch.cuda.get_device_name(0)
@@ -1560,8 +1930,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     engines_phase(dev, card, ds, ds8, counters)
     torch.cuda.empty_cache()
-    serving_phase(dev, card, ds, mf_trained, amazon, amazon_users, counters)
+    tile_server = serving_phase(dev, card, ds, mf_trained, amazon, amazon_users, counters)
+    torch.cuda.empty_cache()
+    streaming_phase(dev, card, mf_trained, tile_server, counters)
 
+    print(f"[total] all 17 phases in {time.perf_counter() - t_start:.1f} s | {card}",
+          flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)
     # The run uses one card (card 0), whatever else the machine exposes.

@@ -8,10 +8,12 @@
 Trains briefly, then serves concurrent single-user requests through a
 :class:`~repro_torch.launch.server.BatchingRecommender` with each pruner asked
 for (``--pruner both``, the default, runs the exact and the tile pruner in
-turn) and refreshes it from a second trained state.  The reference ends with
-two rounds of its streaming service instead; streaming waits for ROADMAP.md
-A.3.  The LM's prefill/decode serving waits for A.6: without ``--mf`` the
-launcher raises.  Runs on the card unless ``--device cpu`` is given.
+turn), and ends as the reference does: the streaming service, warm-started
+on the trained state and a ring over the offline dataset, runs two live
+ingest → train → ``refresh_from`` rounds against the last server, with no
+new call shape.  The LM's prefill/decode serving waits for ROADMAP.md A.6:
+without ``--mf`` the launcher raises.  Runs on the card unless ``--device
+cpu`` is given.
 """
 from __future__ import annotations
 
@@ -21,7 +23,8 @@ import time
 
 
 def serve_mf(args, device) -> None:
-    """Train, serve concurrent requests with each pruner, refresh."""
+    """Train, serve concurrent requests with each pruner, then refresh the
+    last server through two streaming rounds."""
     import numpy as np
     import torch
 
@@ -29,6 +32,8 @@ def serve_mf(args, device) -> None:
     from repro_torch.core.engine import resolve_engine
     from repro_torch.data import pipeline
     from repro_torch.launch.server import BatchingRecommender
+    from repro_torch.stream.service import StreamingConfig, StreamingTrainer
+    from repro_torch.stream.sources import SyntheticStream
     from repro_torch.train import trainer
 
     users, items = 1000, 2000
@@ -41,24 +46,24 @@ def serve_mf(args, device) -> None:
                       sampler=args.sampler or "auto")
     engine = resolve_engine(cfg)
     print(f"[serve] MF engine: {engine.name} (device={device})")
-    states = [trainer.train_mf(cfg, ds, steps=args.train_steps,
-                               batch_size=128, seed=seed, engine=engine,
-                               steps_per_dispatch=16, device=device,
-                               log=lambda *_: None)[0]
-              for seed in (0, 1)]
+    state, _ = trainer.train_mf(cfg, ds, steps=args.train_steps,
+                                batch_size=128, seed=0, engine=engine,
+                                steps_per_dispatch=16, device=device,
+                                log=lambda *_: None)
     train_mask = torch.as_tensor(ds.train_mask(), device=device)
     rng = np.random.default_rng(0)
 
-    for pruner in (("exact", "tile") if args.pruner == "both" else (args.pruner,)):
+    pruners = ("exact", "tile") if args.pruner == "both" else (args.pruner,)
+    for pruner in pruners:
         index = None
         if pruner == "tile":
-            index = retrieval.build_retrieval_index(states[0].params.item_table,
+            index = retrieval.build_retrieval_index(state.params.item_table,
                                                     tile_rows=args.tile_rows)
             print(f"[serve] pruner=tile: {index.num_tiles} tiles x "
                   f"{index.tile_rows} rows, expanding {args.expand_tiles}")
         t0 = time.perf_counter()
         server = BatchingRecommender(
-            states[0], args.topk, pruner=pruner, index=index,
+            state, args.topk, pruner=pruner, index=index,
             expand_tiles=args.expand_tiles, max_batch=args.max_batch,
             max_wait_ms=args.max_wait_ms, item_chunk=args.item_chunk,
             exclude_mask=train_mask, log=print)
@@ -92,17 +97,34 @@ def serve_mf(args, device) -> None:
               f"({stats['device_calls']} device calls, call shapes "
               f"{stats['traces']})")
         uid = int(rng.integers(0, users))
-        before = server.recommend(uid)
-        server.refresh_from(states[1])
-        after = server.recommend(uid)
-        print(f"[serve] {pruner}: top-{args.topk} for user {uid}: {before[:5]}; "
-              f"after refresh_from a second trained state: {after[:5]} "
-              f"(health {server.health['status']}, call shapes "
-              f"{server.trace_count})")
-        server.stop()
-    print("[serve] the reference's two streaming rounds wait for ROADMAP.md "
-          "A.3 (streaming); the server was refreshed from a second train_mf "
-          "state instead")
+        recs = server.recommend(uid)
+        print(f"[serve] {pruner}: top-{args.topk} for user {uid}: {recs[:5]}")
+        if pruner != pruners[-1]:
+            server.stop()
+
+    # Online refresh: warm-start the streaming service on the trained state
+    # and a ring over the offline dataset (both are trained and filled in
+    # place; the server serves its own snapshot), and run two live ingest ->
+    # train -> refresh_from rounds against the last server.
+    live = SyntheticStream(users, items, seed=1, total=512,
+                           user_drift=0.01, item_drift=0.01)
+    streamer = StreamingTrainer(
+        cfg, live,
+        StreamingConfig(capacity=16, micro_batch=256, steps_per_round=25,
+                        batch_size=128, seed=0),
+        state=state,
+        data=pipeline.stream_ring_dataset(users, items, 16, base=ds,
+                                          device=device),
+        engine=engine, recommender=server, device=device,
+        log=lambda *_: None)
+    del state                           # trained in place by the service
+    streamer.run(rounds=2)
+    recs2 = server.recommend(uid)
+    print(f"[serve] {pruners[-1]}: after {streamer.rounds} streaming rounds "
+          f"({streamer.events} live events, {streamer.step} total steps, "
+          f"health {server.health['status']}, call shapes "
+          f"{server.trace_count}): {recs2[:5]}")
+    server.stop()
 
 
 def main(argv=None):

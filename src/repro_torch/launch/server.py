@@ -33,17 +33,14 @@ import torch
 from repro_torch.core import mf
 from repro_torch.core import retrieval as rtv
 from repro_torch.optim import quantization as qz
+# RetraceError is what a second call shape raises; importable from here too
+from repro_torch.train.shapes import RetraceError, ShapeCounter
 
 
 class _Request(NamedTuple):
     user_id: int
     event: threading.Event
     result: list           # single-slot box the worker fills
-
-
-class RetraceError(RuntimeError):
-    """A second padded call shape: the server's one-shape budget is
-    broken."""
 
 
 def _snapshot(table: qz.Table) -> qz.Table:
@@ -86,7 +83,7 @@ class BatchingRecommender:
         self._exclude_mask = exclude_mask
         self._log = log or (lambda *_: None)
         self._lock = threading.Lock()          # counters and call shapes
-        self._shapes: set = set()
+        self._shapes = ShapeCounter("batching_recommender.call", budget=1)
         self._device_calls = 0
         self._requests_served = 0
         # a failed refresh keeps the previous snapshot live and is counted
@@ -133,12 +130,8 @@ class BatchingRecommender:
     def _call(self, padded: np.ndarray) -> np.ndarray:
         user_ids = torch.as_tensor(padded, dtype=torch.int64, device=self._device)
         with self._lock:
-            self._shapes.add(tuple(user_ids.shape))
             self._device_calls += 1
-            shapes = len(self._shapes)
-        if shapes > 1:
-            raise RetraceError(f"the server issued {shapes} call shapes, "
-                               "budget 1: every call is padded to max_batch")
+            self._shapes.add(tuple(user_ids.shape))     # budget 1: raises
         return self._recommend(user_ids).cpu().numpy()
 
     def warmup(self) -> float:
@@ -152,7 +145,7 @@ class BatchingRecommender:
     @property
     def trace_count(self) -> int:
         """Distinct padded call shapes issued so far (1 in steady state)."""
-        return len(self._shapes)
+        return self._shapes.count
 
     @property
     def stats(self) -> dict:

@@ -10,9 +10,12 @@ Layout::
         <leaf>.npy        one file per leaf, named by its path
                           (``params/user_table/q`` -> ``params__user_table__q.npy``)
 
-- **Leaf names** are the reference's: the NamedTuple field and dict key
-  path joined by ``/``, with ``None`` fields absent (:func:`named_leaves`, which
-  ``convert.py`` uses too).  int64 tensors (ids) are written as int32 and
+- **Leaf names** are the reference's: the NamedTuple field, dataclass
+  field and dict key path joined by ``/``, with ``None`` fields absent
+  (:func:`named_leaves`, which ``convert.py`` uses too).  A dataclass (the
+  streaming ring, ``data/pipeline.py::DeviceCFDataset``) is walked like the
+  reference's registered pytree: its tensor fields are leaves
+  (``data/train_pos``), its int fields metadata that is not written.  int64 tensors (ids) are written as int32 and
   host-int counters as 0-d int32, as the reference keeps them.
 - **Atomic**: written to ``step_<N>.tmp`` and renamed; ``save`` first sweeps
   ``.tmp`` directories orphaned by a crashed writer.
@@ -25,6 +28,7 @@ Layout::
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import re
@@ -45,15 +49,23 @@ def _is_struct(tree) -> bool:
 
 
 def map_leaves(tree: Any, fn: Callable[[str, Any], Any], prefix: str = ""):
-    """Rebuild ``tree`` (nested NamedTuples and dicts) with each non-None
-    leaf replaced by ``fn(name, leaf)``, ``name`` its field path (dict keys
-    taken in sorted order, as ``jax.tree`` flattens them) joined by ``/``."""
+    """Rebuild ``tree`` (nested NamedTuples, dataclasses and dicts) with
+    each non-None leaf replaced by ``fn(name, leaf)``, ``name`` its field
+    path (dict keys taken in sorted order, as ``jax.tree`` flattens them)
+    joined by ``/``.  A dataclass's int, float, str and bool fields are
+    metadata: kept as they are and never passed to ``fn``."""
     if tree is None:
         return None
     if _is_struct(tree):
         return type(tree)(*(map_leaves(getattr(tree, f), fn,
                                        f"{prefix}/{f}" if prefix else f)
                             for f in tree._fields))
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return dataclasses.replace(tree, **{
+            f.name: map_leaves(getattr(tree, f.name), fn,
+                               f"{prefix}/{f.name}" if prefix else f.name)
+            for f in dataclasses.fields(tree)
+            if not isinstance(getattr(tree, f.name), (int, float, str, bool))})
     if isinstance(tree, dict):
         return {k: map_leaves(tree[k], fn, f"{prefix}/{k}" if prefix else k)
                 for k in sorted(tree)}

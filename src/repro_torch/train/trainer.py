@@ -35,6 +35,7 @@ from repro_torch.models.config import ArchConfig
 from repro_torch.models.params import tree_from_items, tree_items, tree_map
 from repro_torch.optim.optimizers import Optimizer, get_optimizer
 from repro_torch.train import checkpoint as ckpt
+from repro_torch.train.shapes import ShapeCounter
 
 #: restarts ``train_mf`` makes after injected failures before it re-raises.
 MAX_RESTARTS = 2
@@ -49,15 +50,23 @@ class EpochExecutor:
     """Runs ``body(state, step) -> (state, loss)`` over K-step windows.
 
     ``run`` returns the window's losses as one device tensor, so a window
-    costs one host sync, taken by the caller at its edge."""
+    costs one host sync, taken by the caller at its edge.  The state may be
+    any carry the body threads (an ``MFState``, or the streaming service's
+    ``(state, data)`` pair).  ``trace_counter`` counts the distinct window
+    lengths dispatched — the reference compiles one program per length and
+    counts its traces — and raises past ``trace_budget``."""
 
-    def __init__(self, body: Callable, steps_per_dispatch: int):
+    def __init__(self, body: Callable, steps_per_dispatch: int, *,
+                 trace_budget: Optional[int] = None):
         self.body = body
         self.steps_per_dispatch = max(int(steps_per_dispatch), 1)
+        self.trace_counter = ShapeCounter("epoch_executor.window",
+                                          trace_budget)
 
     def run(self, state, start: int, length: int):
         """Run steps ``[start, start + length)``; returns
         ``(new_state, (length,) device loss tensor)``."""
+        self.trace_counter.add(length)
         losses = []
         for step in range(start, start + length):
             state, loss = self.body(state, step)

@@ -752,3 +752,42 @@ def test_cuda_topk_ties_match_stable_argsort(cuda, chunk):
                             similarity="dot", item_chunk=chunk)
     assert got.device.type == "cuda"
     np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
+# A streaming round on the card (the ring, the recency sampler, the tile
+# negatives and the live server refresh) trains through the kernels of the
+# MF step: one stats, one backward and two gather-FMA launches a step, and a
+# crash resumes bit for bit.
+@pytest.mark.cuda
+def test_cuda_streaming_round_launches_the_mf_kernels(cuda, tmp_path):
+    from repro_torch.core import mf
+    from repro_torch.stream.service import StreamingConfig, StreamingTrainer
+    from repro_torch.stream.sources import SyntheticStream
+    cfg = mf.MFConfig(num_users=300, num_items=500, emb_dim=32,
+                      num_negatives=16, tile_size=64, refresh_interval=8,
+                      backend="pallas", update_impl="pallas")
+
+    def service(name, **kw):
+        return StreamingTrainer(
+            cfg, SyntheticStream(300, 500, seed=0, user_drift=0.01),
+            StreamingConfig(capacity=8, micro_batch=128, steps_per_round=8,
+                            batch_size=64, ckpt_dir=str(tmp_path / name),
+                            ckpt_every=2, **kw), device=cuda,
+            log=lambda *_: None)
+
+    counters = (ccl_similarity.STATS_LAUNCHES, ccl_similarity.BWD_LAUNCHES,
+                embedding_update.GATHER_FMA_LAUNCHES)
+    for c in counters:
+        c.reset()
+    clean = service("clean")
+    assert clean.run(rounds=5) == 5
+    torch.cuda.synchronize()
+    assert [c.count() for c in counters] == [40, 40, 80]
+    crashed = service("crashed", fail_at_event=3 * 128 + 5)
+    assert crashed.run(rounds=5) == 5 and crashed.restarts == 1
+    for a, b in ((clean.state.params.user_table, crashed.state.params.user_table),
+                 (clean.state.params.item_table, crashed.state.params.item_table),
+                 (clean.data.train_pos, crashed.data.train_pos),
+                 (clean.data.item_weights, crashed.data.item_weights)):
+        assert torch.equal(a, b)
+    assert clean.loss_history() == crashed.loss_history()
