@@ -15,7 +15,10 @@ MSE, the popularity and in-batch samplers); top-k serving through the
 ``BatchingRecommender`` with the exact and the tile-pruned retrieval; and
 the streaming service (``StreamingTrainer``: ring ingest, train-on-recent
 rounds through kernels #1, #2 and #6, refresh, checkpoints, crash resume,
-the divergence guard and the chaos harness).
+the divergence guard and the chaos harness); and sharded MF training over
+``torch.distributed`` (one NCCL rank, two gloo ranks sharing the card,
+shard-aware checkpoints, the CLI's ``--mesh-data``) through kernels #1, #2
+and #6 on every rank.
 Phases, one line each (a few print more):
 
   1. the card (name and power limit from nvidia-smi);
@@ -149,7 +152,24 @@ Phases, one line each (a few print more):
      shapes unchanged; (e) ``run_chaos(seed=0, rounds=10)`` on the card with
      no problem; (f) ``launch.stream.main`` at 400,000 x 400,000 x 128 on the
      ``pallas`` backend for 4 rounds, its lines and launches; and the phase's
-     seconds.
+     seconds;
+ 18. sharded ``MF_100M_PALLAS`` training over ``torch.distributed`` at batch
+     1,024, on phase 5's dataset rows repeated over the 400,000 users (so
+     every user shard takes updates), held to an unsharded 32-step run of
+     the same seed and its checkpoints at steps 16 and 32: (a) one NCCL
+     rank, ``train_mf(mesh=make_data_mesh(1))`` (an all-reduce probe first),
+     within 1e-5 and whether bit-identical; (b) two gloo ranks sharing card
+     0 (data=2: 200,000 user rows and 512 batch rows a rank) for 32 steps,
+     the gathered state and losses within 1e-5, then ms a step on each rank
+     over one more window and a window with each exchange timed between two
+     synchronizations beside a profiled window's device time; (d) the same
+     run with checkpoints every 8 steps crashed at step 20 on both ranks,
+     equal to (b) bit for bit, and its step-24 checkpoint trained to step 32
+     by one rank within 1e-5; (c) model=2 (200,000 item rows a rank) for 16
+     steps within 1e-5 of the unsharded run's step 16; every run asserts 1,
+     1, 2 launches of #1, #2, #6 a step on every rank; (e) ``launch.train
+     --mf --mesh host --mesh-data 2 --dist-backend gloo`` at full width for
+     4 steps, its lines; and the phase's seconds.
 
 Then it prints the total seconds, the kernels' JSON line, the card line, and
 as its last line ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
@@ -1569,6 +1589,384 @@ def streaming_phase(dev, card: str, mf_trained, tile_server, counters) -> None:
           flush=True)
 
 
+#: phase 18: sharded MF_100M_PALLAS: the steps of the single-device run and
+#: of the data=2 run (18a, 18b), of the model=2 run (18c), the window, the
+#: checkpoint interval, the injected failure and the elastic restore's step
+#: (18d), and the CLI's steps (18e).
+SHARD_STEPS, SHARD_MODEL_STEPS, SHARD_WINDOW = 32, 16, 16
+SHARD_CKPT, SHARD_FAIL, SHARD_ELASTIC_FROM = 8, 20, 24
+SHARD_CLI_STEPS = 4
+SHARD_ATOL = 1e-5
+
+
+def shard_dataset(ds, num_users: int):
+    """Phase 5's dataset with its rows repeated over ``num_users`` users (user
+    u has user ``u % 4,096``'s positives), so the batches touch every user
+    shard, as a dataset of the model's width would."""
+    import numpy as np
+    from repro_torch.data import pipeline
+    rows = np.arange(num_users) % ds.num_users
+    return pipeline.CFDataset(num_users, ds.num_items, ds.train_pos[rows],
+                              ds.test_pos[rows])
+
+
+def host_tree(state) -> dict:
+    """An MF state's leaves as the numpy arrays a checkpoint stores, by name
+    (copies: training on does not change them)."""
+    import numpy as np
+    from repro_torch.train import checkpoint as ckpt
+    return {n: np.array(ckpt.leaf_to_numpy(x)) for n, x in ckpt.named_leaves(state)}
+
+
+def load_tree(path: str) -> dict:
+    """A checkpoint directory's leaves as numpy arrays, by name."""
+    import numpy as np
+    with open(os.path.join(path, "manifest.json")) as f:
+        leaves = json.load(f)["leaves"]
+    return {leaf["name"]: np.load(os.path.join(path, leaf["file"]))
+            for leaf in leaves}
+
+
+def tree_diff(tree: dict, ref: dict):
+    """Largest |tree - ref| over the leaves and whether every leaf is the
+    same bits; the names, ids and counters must agree exactly."""
+    import numpy as np
+    assert sorted(tree) == sorted(ref), (sorted(tree), sorted(ref))
+    worst, same = 0.0, True
+    for name, want in ref.items():
+        got = tree[name]
+        assert got.shape == want.shape and got.dtype == want.dtype, name
+        if want.dtype.kind == "f":
+            worst = max(worst, float(np.abs(got.astype(np.float64)
+                                            - want).max(initial=0.0)))
+        else:
+            assert np.array_equal(got, want), f"{name} differs"
+        same = same and np.array_equal(got, want)
+    return worst, same
+
+
+def shard_launches(steps: int) -> dict:
+    """The launches of ``steps`` MF_100M_PALLAS steps: one stats, one
+    backward and two gather-FMA (the user shard, then the item groups)."""
+    return {"ccl_stats": steps, "ccl_bwd": steps, "gather_fma": 2 * steps}
+
+
+def exchange_split(executor, state, start: int, length: int, mesh, prof_on: bool):
+    """Two more windows of a sharded run, each begun at a barrier: one with
+    every exchange timed on the host between two device synchronizations,
+    then (when ``prof_on``) one profiled.  Returns ms a step of the first
+    window's wall and of its exchanges, and the second's device busy ms and
+    kernel launches a step (None unless profiled, or where the profiler saw
+    no device time)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.distributed import sharding as shd
+    spent = [0.0]
+    plain = shd.all_gather_parts
+
+    def timed(parts, group):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = plain(parts, group)
+        torch.cuda.synchronize()
+        spent[0] += time.perf_counter() - t0
+        return out
+
+    shd.all_gather_parts = timed
+    try:
+        torch.cuda.synchronize()
+        mesh.barrier()
+        t0 = time.perf_counter()
+        state, _ = executor.run(state, start, length)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        shd.all_gather_parts = plain
+    busy = launches = None
+    mesh.barrier()
+    if prof_on:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            state, _ = executor.run(state, start + length, length)
+            torch.cuda.synchronize()
+        kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        us = sum(e.self_device_time_total for e in kern)
+        if us > 0:
+            busy = us / 1e3 / length
+            launches = sum(e.count for e in kern) / length
+    else:
+        state, _ = executor.run(state, start + length, length)
+    return 1e3 * wall / length, 1e3 * spent[0] / length, busy, launches
+
+
+def shard_rank(cfg, ds, ref_dir: str, ref_losses: list, work: str) -> dict:
+    """One of phase 18's two gloo ranks on card 0: 18b (data=2, 32 steps,
+    then a timed window and an exchange-timed window), 18d (the same run
+    crashed at step 20 and resumed) and 18c (model=2, 16 steps).  Rank 0
+    holds each gathered state to the single-device run's checkpoints."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import mf
+    from repro_torch.core import mf_distributed as mfd
+    from repro_torch.data import pipeline
+    from repro_torch.kernels import ccl_similarity, embedding_update
+    from repro_torch.launch.mesh import make_data_mesh, make_host_mesh, rank_device
+    from repro_torch.train import trainer
+    dev = rank_device("cuda")
+    rank = dist.get_rank()
+    counters = (ccl_similarity.STATS_LAUNCHES, ccl_similarity.BWD_LAUNCHES,
+                embedding_update.GATHER_FMA_LAUNCHES)
+    out: dict = {"device": str(dev)}
+    logs: list = []
+
+    def drive(mesh, steps, launched=None, **kw):
+        for c in counters:
+            c.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, losses = trainer.train_mf(
+            cfg, ds, steps, batch_size=B, steps_per_dispatch=SHARD_WINDOW,
+            mesh=mesh, device=dev, log=logs.append if rank == 0 else (lambda *_: None),
+            **kw)
+        torch.cuda.synchronize()
+        launches = {c.name: c.count() for c in counters}
+        assert launches == shard_launches(launched or steps), (rank, launches)
+        return state, losses, launches, time.perf_counter() - t0
+
+    def timed_window(plan, state, start):
+        dds = pipeline.device_cf_dataset(ds, dev)
+        body = mf.make_scan_body(cfg, lambda s: pipeline.cf_batch_device(
+            dds, 0, s, B), 0, plan=plan)
+        executor = trainer.EpochExecutor(body, SHARD_WINDOW)
+        torch.cuda.synchronize()
+        plan.mesh.barrier()          # rank 0 compared states meanwhile
+        t0 = time.perf_counter()
+        state, window = executor.run(state, start, SHARD_WINDOW)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(window).all())
+        return executor, state, 1e3 * (time.perf_counter() - t0) / SHARD_WINDOW
+
+    # ---- 18b: data=2 ----------------------------------------------------------
+    mesh = make_data_mesh(2)
+    plan = mfd.make_sharding_plan(cfg, mesh)
+    state, losses, launches, secs = drive(mesh, SHARD_STEPS)
+    out["launches"], out["secs"] = launches, secs
+    out["rows"] = (plan.users.own, plan.items.own, plan.batch_rows(B))
+    gathered = plan.gather_state(state)
+    whole = host_tree(gathered) if rank == 0 else None
+    del gathered
+    if rank == 0:
+        out["err"], out["same"] = tree_diff(whole, load_tree(os.path.join(
+            ref_dir, f"step_{SHARD_STEPS:08d}")))
+        out["loss_err"] = max(abs(a - b) for a, b in zip(losses, ref_losses))
+        assert out["err"] <= SHARD_ATOL and out["loss_err"] <= SHARD_ATOL, out
+    clean_losses = losses
+    executor, state, out["ms"] = timed_window(plan, state, SHARD_STEPS)
+    out["split"] = exchange_split(executor, state, SHARD_STEPS + SHARD_WINDOW,
+                                  SHARD_WINDOW, mesh, prof_on=rank == 0)
+    del state, executor
+
+    # ---- 18d: 18b crashed at step 20, checkpoints every 8 steps ---------------
+    replayed = SHARD_FAIL - SHARD_FAIL // SHARD_CKPT * SHARD_CKPT
+    state, losses, launches, secs = drive(
+        mesh, SHARD_STEPS, SHARD_STEPS + replayed, ckpt_dir=os.path.join(work, "crash"),
+        ckpt_every=SHARD_CKPT, fail_at_step=SHARD_FAIL)
+    gathered = plan.gather_state(state)
+    crashed = host_tree(gathered) if rank == 0 else None
+    del gathered
+    if rank == 0:
+        resumed = losses[:SHARD_FAIL - replayed] + losses[SHARD_FAIL:]
+        out["crash"] = (len(losses), resumed == clean_losses,
+                        tree_diff(crashed, whole)[1], list(logs), secs)
+        assert out["crash"][1] and out["crash"][2], out["crash"]
+    del state, crashed, whole
+
+    # ---- 18c: model=2 (item rows split) ----------------------------------------
+    mesh_m = make_host_mesh(1, 2)
+    plan_m = mfd.make_sharding_plan(cfg, mesh_m)
+    state, losses, launches, secs = drive(mesh_m, SHARD_MODEL_STEPS)
+    out["m_launches"], out["m_secs"] = launches, secs
+    out["m_rows"] = (plan_m.users.own, plan_m.items.own, plan_m.batch_rows(B))
+    gathered = plan_m.gather_state(state)
+    whole = host_tree(gathered) if rank == 0 else None
+    del gathered
+    if rank == 0:
+        out["m_err"], out["m_same"] = tree_diff(whole, load_tree(os.path.join(
+            ref_dir, f"step_{SHARD_MODEL_STEPS:08d}")))
+        out["m_loss_err"] = max(abs(a - b) for a, b in zip(
+            losses, ref_losses[:SHARD_MODEL_STEPS]))
+        assert out["m_err"] <= SHARD_ATOL and out["m_loss_err"] <= SHARD_ATOL, out
+    _, _, out["m_ms"] = timed_window(plan_m, state, SHARD_MODEL_STEPS)
+    return out
+
+
+def sharding_phase(dev, card: str, ds0, counters) -> float:
+    """Phase 18: sharded MF_100M_PALLAS training over torch.distributed.
+    18a: one NCCL rank against the unsharded run; 18b-d: two gloo ranks on
+    card 0 (data=2, its crash and resume, model=2) held to the unsharded
+    run's checkpoints, and a checkpoint of 2 ranks trained on by 1; 18e: the
+    CLI with --mesh-data 2.  Returns the phase's seconds."""
+    import shutil
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs.heat_mf import MF_100M_PALLAS
+    from repro_torch.core import mf
+    from repro_torch.core import mf_distributed as mfd
+    from repro_torch.data import pipeline
+    from repro_torch.launch.mesh import init_rank, make_data_mesh, run_ranks
+    from repro_torch.train import trainer
+    cfg = MF_100M_PALLAS
+    t_phase = time.perf_counter()
+    ds = shard_dataset(ds0, cfg.num_users)
+
+    def take_launches():
+        got = {c.name: c.count() for c in counters}
+        for c in counters:
+            c.reset()
+        return {k: v for k, v in got.items() if k in shard_launches(0)}
+
+    def steady_ms(state, plan=None):
+        dds = pipeline.device_cf_dataset(ds, dev)
+        body = mf.make_scan_body(cfg, lambda s: pipeline.cf_batch_device(
+            dds, 0, s, B), 0, plan=plan)
+        executor = trainer.EpochExecutor(body, SHARD_WINDOW)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        executor.run(state, SHARD_STEPS, SHARD_WINDOW)
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / SHARD_WINDOW
+
+    with tempfile.TemporaryDirectory() as work:
+        ref_dir = os.path.join(work, "ref")
+        # ---- the single-device run every sharded run is held to -----------------
+        take_launches()
+        ref, ref_losses = trainer.train_mf(
+            cfg, ds, SHARD_STEPS, batch_size=B, steps_per_dispatch=SHARD_WINDOW,
+            device="cuda", ckpt_dir=ref_dir, ckpt_every=SHARD_WINDOW)
+        assert take_launches() == shard_launches(SHARD_STEPS)
+        ref_tree = host_tree(ref)
+        ms_single = steady_ms(ref)
+        del ref
+
+        # ---- 18a: one NCCL rank ---------------------------------------------------
+        init_rank(0, 1, "nccl", os.path.join(work, "store"), "cuda")
+        try:
+            probe = torch.ones(1, device=dev)
+            dist.all_reduce(probe)
+            assert probe.item() == 1.0 and dist.get_backend() == "nccl"
+            mesh = make_data_mesh(1)
+            plan = mfd.make_sharding_plan(cfg, mesh)
+            take_launches()
+            one, losses = trainer.train_mf(
+                cfg, ds, SHARD_STEPS, batch_size=B, steps_per_dispatch=SHARD_WINDOW,
+                mesh=mesh, device=dev)
+            launches = take_launches()
+            assert launches == shard_launches(SHARD_STEPS), launches
+            err, same = tree_diff(host_tree(one), ref_tree)
+            loss_err = max(abs(a - b) for a, b in zip(losses, ref_losses))
+            assert err <= SHARD_ATOL and loss_err <= SHARD_ATOL, (err, loss_err)
+            ms_one = steady_ms(one, plan)
+            del one
+        finally:
+            dist.destroy_process_group()
+        print(f"[18a nccl] MF_100M_PALLAS ({cfg.num_users} x {cfg.num_items} x "
+              f"{cfg.emb_dim}, n={cfg.num_negatives}, tile {cfg.tile_size}, refresh "
+              f"{cfg.refresh_interval}, pallas+pallas+tile) batch {B} on phase 5's "
+              f"dataset rows repeated over {cfg.num_users} users: train_mf("
+              f"mesh=make_data_mesh(1)) over NCCL (an all-reduce probe passed) for "
+              f"{SHARD_STEPS} steps against the unsharded run: state max abs diff "
+              f"{err:.3e}, losses {loss_err:.3e} (tol {SHARD_ATOL:g}); bit-identical: "
+              f"{same and loss_err == 0}; launches {launches}; {ms_one:.3f} ms a step "
+              f"against {ms_single:.3f} ms unsharded (one more {SHARD_WINDOW}-step "
+              f"window each) | {card}", flush=True)
+        torch.cuda.empty_cache()
+
+        # ---- 18b-d: two gloo ranks sharing card 0 ---------------------------------
+        t0 = time.perf_counter()
+        r0, r1 = run_ranks(shard_rank, 2, args=(cfg, ds, ref_dir, ref_losses, work),
+                           backend="gloo", device="cuda", timeout=600)
+        t_ranks = time.perf_counter() - t0
+        wall, exch, busy, launches_p = r0["split"]
+        busy_s = "not measured" if busy is None else f"{busy:.3f} ms"
+        rest = "not measured" if busy is None else f"{wall - exch - busy:.3f} ms"
+        print(f"[18b gloo data=2] 2 ranks on {r0['device']} and {r1['device']} "
+              f"(user rows {r0['rows'][0]} and {r1['rows'][0]}, batch rows "
+              f"{r0['rows'][2]} and {r1['rows'][2]}, the whole item table each), "
+              f"{SHARD_STEPS} steps: gathered state max abs diff {r0['err']:.3e}, "
+              f"losses {r0['loss_err']:.3e} against the unsharded run (tol "
+              f"{SHARD_ATOL:g}); bit-identical: {r0['same'] and r0['loss_err'] == 0}; "
+              f"launches rank 0 {r0['launches']}, rank 1 {r1['launches']}; "
+              f"{r0['ms']:.3f} / {r1['ms']:.3f} ms a step on ranks 0 / 1 over one "
+              f"more {SHARD_WINDOW}-step window (unsharded {ms_single:.3f} ms) | {card}",
+              flush=True)
+        print(f"[18b split] rank 0, one more window with each exchange timed "
+              f"between two device synchronizations: {wall:.3f} ms a step, "
+              f"exchanges {exch:.3f} ms ({100 * exch / wall:.1f}%); device busy "
+              f"{busy_s} a step in a profiled window after it, so the rest {rest}; "
+              f"{'not measured' if launches_p is None else f'{launches_p:.0f}'} "
+              f"device launches a step (unsharded: phase 7) | {card}", flush=True)
+        n_losses, same_losses, same_state, logs, secs = r0["crash"]
+        print(f"[18d crash] the 18b run with checkpoints every {SHARD_CKPT} steps "
+              f"and a failure at step {SHARD_FAIL} on both ranks ({logs}; "
+              f"{n_losses} losses logged, {secs:.1f} s): losses and the gathered "
+              f"state equal the uninterrupted 18b run bit for bit: "
+              f"{same_losses and same_state} | {card}", flush=True)
+        print(f"[18c gloo model=2] 2 ranks (item rows {r0['m_rows'][1]} and "
+              f"{r1['m_rows'][1]}, the whole batch and user table each), "
+              f"{SHARD_MODEL_STEPS} steps: state max abs diff {r0['m_err']:.3e}, "
+              f"losses {r0['m_loss_err']:.3e} against the unsharded run's first "
+              f"{SHARD_MODEL_STEPS} steps; bit-identical: "
+              f"{r0['m_same'] and r0['m_loss_err'] == 0}; launches rank 0 "
+              f"{r0['m_launches']}, rank 1 {r1['m_launches']}; {r0['m_ms']:.3f} / "
+              f"{r1['m_ms']:.3f} ms a step; the two ranks' call took {t_ranks:.1f} s "
+              f"| {card}", flush=True)
+
+        # ---- 18d: the step-24 checkpoint of 2 ranks, trained on by 1 --------------
+        elastic = os.path.join(work, "elastic")
+        name = f"step_{SHARD_ELASTIC_FROM:08d}"
+        shutil.copytree(os.path.join(work, "crash", name), os.path.join(elastic, name))
+        logs = []
+        state, losses = trainer.train_mf(
+            cfg, ds, SHARD_STEPS, batch_size=B, steps_per_dispatch=SHARD_CKPT,
+            device="cuda", ckpt_dir=elastic, ckpt_every=1000, log=logs.append)
+        err, _ = tree_diff(host_tree(state), ref_tree)
+        loss_err = max(abs(a - b) for a, b in zip(losses,
+                                                   ref_losses[SHARD_ELASTIC_FROM:]))
+        assert logs == [f"[mf] resumed from step {SHARD_ELASTIC_FROM}"], logs
+        assert len(losses) == SHARD_STEPS - SHARD_ELASTIC_FROM
+        assert err <= SHARD_ATOL and loss_err <= SHARD_ATOL, (err, loss_err)
+        print(f"[18d elastic] 18d's step-{SHARD_ELASTIC_FROM} checkpoint (saved by "
+              f"2 ranks) restored by 1 and trained to step {SHARD_STEPS}: state "
+              f"max abs diff {err:.3e}, losses {loss_err:.3e} against the unsharded "
+              f"run | {card}", flush=True)
+        del state
+
+    # ---- 18e: the CLI -------------------------------------------------------------
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
+    t0 = time.perf_counter()
+    cli = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--mf", "--steps",
+         str(SHARD_CLI_STEPS), "--batch", str(B), "--backend", "pallas",
+         "--update-impl", "pallas", "--steps-per-dispatch", "2", "--mesh", "host",
+         "--mesh-data", "2", "--dist-backend", "gloo"],
+        capture_output=True, text=True, timeout=300,
+        env=dict(os.environ, PYTHONPATH=src))
+    assert cli.returncode == 0, cli.stderr[-3000:]
+    lines = [l for l in cli.stdout.splitlines() if l.startswith(("[launch]", "done:"))]
+    assert any("devices=2" in l for l in lines), cli.stdout
+    assert any(l.startswith(f"done: {SHARD_CLI_STEPS} steps") for l in lines), cli.stdout
+    print(f"[18e cli] launch.train --mf --mesh host --mesh-data 2 --dist-backend gloo "
+          f"(MF_100M_PALLAS, batch {B}, {SHARD_CLI_STEPS} steps) in "
+          f"{time.perf_counter() - t0:.1f} s: {' / '.join(lines)} | {card}", flush=True)
+    secs = time.perf_counter() - t_phase
+    print(f"[18 shard] phase 18 took {secs:.1f} s | {card}", flush=True)
+    return secs
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1933,9 +2331,11 @@ def main() -> int:
     tile_server = serving_phase(dev, card, ds, mf_trained, amazon, amazon_users, counters)
     torch.cuda.empty_cache()
     streaming_phase(dev, card, mf_trained, tile_server, counters)
+    torch.cuda.empty_cache()
+    t_shard = sharding_phase(dev, card, ds, counters)
 
-    print(f"[total] all 17 phases in {time.perf_counter() - t_start:.1f} s | {card}",
-          flush=True)
+    print(f"[total] all 18 phases in {time.perf_counter() - t_start:.1f} s (phase 18: "
+          f"{t_shard:.1f} s) | {card}", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)
     # The run uses one card (card 0), whatever else the machine exposes.

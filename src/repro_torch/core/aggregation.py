@@ -10,8 +10,9 @@ embeddings of the items in their history::
 W is dense and shared by every row of the batch.  HEAT accumulates its
 gradients locally and applies them every ``m`` steps (m = 32); here the
 accumulator is part of the training state and its ``count`` is a host int,
-so the flush decision never waits on the device.  The mesh's all-reduce waits
-for the sharding slice.  The products are plain PyTorch calls, as the
+so the flush decision never waits on the device.  Under a mesh the ranks'
+local sums are combined on flush steps only (:func:`maybe_flush`'s
+``group``).  The products are plain PyTorch calls, as the
 reference leaves them to XLA outside any kernel.
 """
 from __future__ import annotations
@@ -20,6 +21,8 @@ import math
 from typing import NamedTuple, Optional
 
 import torch
+
+from repro_torch.distributed.sharding import sum_over
 
 
 class AggregatorParams(NamedTuple):
@@ -99,13 +102,26 @@ def accumulate(state: AccumulatorState,
 
 
 def maybe_flush(state: AccumulatorState, params: AggregatorParams, lr: float,
-                flush_every: int):
+                flush_every: int, *, group=None):
     """Every ``flush_every`` steps: ``W -= lr * grad_sum / count`` (Listing
     1's update) and a fresh accumulator; otherwise both unchanged.
-    Returns ``(params, state)``."""
+    Returns ``(params, state)``.
+
+    ``group`` (a ``distributed.sharding.AxisGroup``; the counterpart of the
+    reference's ``axis_name``) combines the members' local sums on flush
+    steps only, as §4.5 defers them: an all-gather and a sum in group
+    order, so every member applies the same bits.  The members' sums are
+    *summed*, where the reference takes a ``pmean`` of per-shard means: the
+    sharded step scales each rank's loss by its share of the batch, so a
+    rank's gradients are shares of the global mean already."""
     if state.count < flush_every:
         return params, state
+    grad_sum = state.grad_sum
+    if group is not None:
+        leaves = [g for g in grad_sum if g is not None]
+        summed = iter(sum_over(leaves, group))
+        grad_sum = AggregatorParams(*(None if g is None else next(summed)
+                                      for g in grad_sum))
     denom = float(max(state.count, 1))
-    new_params = _map(lambda w, g: w - lr * (g / denom), params,
-                      state.grad_sum)
+    new_params = _map(lambda w, g: w - lr * (g / denom), params, grad_sum)
     return new_params, accumulator_init(params)

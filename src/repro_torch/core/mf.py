@@ -172,9 +172,44 @@ def init_mf(seed: int, cfg: MFConfig, *, device=None) -> MFState:
     return MFState(MFParams(user_t, item_t, aggregator), tile, accum, 0)
 
 
+def loss_and_grads(rows, aggregator, hist_mask, cfg: MFConfig,
+                   engine: StepEngine, scale: Optional[float] = None):
+    """The step's forward and backward on its gathered rows: ``rows`` is
+    ``[user (B, K), pos (B, K), negs (B, n, K)]`` plus the history rows
+    (B, H, K) when ``aggregator`` is set.  Returns ``(loss, grads,
+    agg_grads)``: the detached loss, the gradients of ``rows`` in order and
+    the aggregator's gradients (None without one).  ``scale`` multiplies
+    the loss before the backward (a rank's share of a sharded batch)."""
+    leaves = [t.detach().requires_grad_() for t in rows]
+    agg_leaves = ([None if t is None else t.detach().requires_grad_()
+                   for t in aggregator] if aggregator is not None else [])
+    with torch.enable_grad():
+        user_in = leaves[0]
+        if aggregator is not None:
+            user_in = agg.aggregate(
+                agg.AggregatorParams(*agg_leaves), user_in, leaves[3],
+                hist_mask.to(rows[0].dtype), gate=cfg.gate,
+                kind=cfg.aggregation_kind)
+        loss = engine.loss_fn(user_in, leaves[1], leaves[2], mu=cfg.mu,
+                              theta=cfg.theta, similarity=cfg.similarity)
+        if scale is not None:
+            loss = loss * scale
+        inputs = leaves + [t for t in agg_leaves if t is not None]
+        # A loss that ignores an input (mse_dot, the negatives) gives it a
+        # zero gradient, as jax.grad does.
+        grads = [torch.zeros_like(x) if g is None else g for x, g in zip(
+            inputs, torch.autograd.grad(loss, inputs, allow_unused=True))]
+    agg_grads = None
+    if aggregator is not None:
+        g_agg = iter(grads[len(leaves):])
+        agg_grads = agg.AggregatorParams(
+            *(None if t is None else next(g_agg) for t in agg_leaves))
+    return loss.detach(), grads[:len(leaves)], agg_grads
+
+
 def heat_train_step(state: MFState, batch: Batch, rng: int, cfg: MFConfig,
                     *, engine: Optional[StepEngine] = None,
-                    item_weights: Optional[torch.Tensor] = None):
+                    item_weights: Optional[torch.Tensor] = None, plan=None):
     """One HEAT iteration; returns ``(new_state, loss)`` with the loss a
     0-d tensor on the device.
 
@@ -189,9 +224,17 @@ def heat_train_step(state: MFState, batch: Batch, rng: int, cfg: MFConfig,
     through the gather-dequant kernel when ``engine.backend == 'pallas'``.
     The sampler's context carries the batch's positives (``in_batch``) and
     ``item_weights`` ((I,) unnormalized, for ``popularity``).  The tables
-    are updated in place."""
+    are updated in place.
+
+    ``plan`` (a ``core/mf_distributed.py::MFShardingPlan``) runs the step
+    sharded: ``state`` is this rank's part, ``batch`` the *global* batch
+    (the same on every rank), and the loss the global batch's
+    (:func:`~repro_torch.core.mf_distributed.sharded_train_step`)."""
     if engine is None:
         engine = resolve_engine(cfg)
+    if plan is not None:
+        return plan.train_step(state, batch, rng, cfg, engine=engine,
+                               item_weights=item_weights)
     params, tile = state.params, state.tile
     dev = batch.user_ids.device
     quantized = isinstance(params.user_table, qz.QuantizedTable)
@@ -214,23 +257,8 @@ def heat_train_step(state: MFState, batch: Batch, rng: int, cfg: MFConfig,
     if aggregator is not None:
         rows.append(qz.gather_rows(params.item_table, batch.hist_ids,
                                    use_kernel=in_kernel))
-    leaves = [t.detach().requires_grad_() for t in rows]
-    agg_leaves = ([None if t is None else t.detach().requires_grad_()
-                   for t in aggregator] if aggregator is not None else [])
-    with torch.enable_grad():
-        user_in = leaves[0]
-        if aggregator is not None:
-            user_in = agg.aggregate(
-                agg.AggregatorParams(*agg_leaves), user_in, leaves[3],
-                batch.hist_mask.to(user_e.dtype), gate=cfg.gate,
-                kind=cfg.aggregation_kind)
-        loss = engine.loss_fn(user_in, leaves[1], leaves[2], mu=cfg.mu,
-                              theta=cfg.theta, similarity=cfg.similarity)
-        inputs = leaves + [t for t in agg_leaves if t is not None]
-        # A loss that ignores an input (mse_dot, the negatives) gives it a
-        # zero gradient, as jax.grad does.
-        grads = [torch.zeros_like(x) if g is None else g for x, g in zip(
-            inputs, torch.autograd.grad(loss, inputs, allow_unused=True))]
+    loss, grads, agg_grads = loss_and_grads(rows, aggregator, batch.hist_mask,
+                                            cfg, engine)
     g_user, g_pos, g_neg = grads[:3]
 
     # §3.1: only touched rows are written.  All of the step's item gradient
@@ -288,31 +316,32 @@ def heat_train_step(state: MFState, batch: Batch, rng: int, cfg: MFConfig,
     # Aggregator: local accumulation, deferred flush (§4.5 / Listing 1).
     accum = state.accum
     if aggregator is not None:
-        g_agg = iter(grads[4:])
-        accum = agg.accumulate(accum, agg.AggregatorParams(
-            *(None if t is None else next(g_agg) for t in agg_leaves)))
+        accum = agg.accumulate(accum, agg_grads)
         aggregator, accum = agg.maybe_flush(accum, aggregator, cfg.lr,
                                             cfg.flush_every)
 
     new_state = MFState(MFParams(new_user, new_item, aggregator), tile, accum,
                         state.step + 1)
-    return new_state, loss.detach()
+    return new_state, loss
 
 
 def make_scan_body(cfg: MFConfig, batch_fn, seed: int, *,
                    engine: Optional[StepEngine] = None,
-                   item_weights: Optional[torch.Tensor] = None):
+                   item_weights: Optional[torch.Tensor] = None, plan=None):
     """``body(state, step) -> (state, loss)``: the per-step body of the
     trainer's K-step windows.  ``batch_fn(step)`` builds the batch and the
     step key is ``fold_in(seed, step)``, so a window is pure in
     (state, seed, start).  ``item_weights`` (for example
-    ``DeviceCFDataset.item_weights``) feeds the ``popularity`` sampler."""
+    ``DeviceCFDataset.item_weights``) feeds the ``popularity`` sampler;
+    ``plan`` runs each step sharded (``batch_fn`` then draws the global
+    batch)."""
     if engine is None:
         engine = resolve_engine(cfg)
 
     def body(state: MFState, step: int):
         return heat_train_step(state, batch_fn(step), fold_in(seed, step),
-                               cfg, engine=engine, item_weights=item_weights)
+                               cfg, engine=engine, item_weights=item_weights,
+                               plan=plan)
 
     return body
 

@@ -24,6 +24,9 @@ build gives the same index on every run.  Both top-k stages rank ties as
 
 Parity: with ``expand_tiles >= num_tiles`` the candidate set is the whole
 catalog and :func:`topk_pruned` returns ``mf.topk_all_items``'s top-k set.
+Sharded tables (``plan=``, a ``core/mf_distributed.py::MFShardingPlan``)
+serve through the plan's exact row lookups, so the ids are the
+single-device call's bit for bit.
 """
 from __future__ import annotations
 
@@ -144,17 +147,23 @@ def build_retrieval_index(item_table: qz.Table, *, tile_rows: int = 512,
 def candidate_scores(params: mf.MFParams, user_ids: torch.Tensor,
                      index: RetrievalIndex, *, expand_tiles: int,
                      similarity: str = "cosine",
-                     exclude_mask: Optional[torch.Tensor] = None):
+                     exclude_mask: Optional[torch.Tensor] = None,
+                     plan=None):
     """The two stages of :func:`topk_pruned` before its final top-k:
     ``(cand (B, C) int64 item ids, -1 in padding slots; scores (B, C))``,
     ``-inf`` at padding and excluded items.  Centroid scoring picks
     ``expand_tiles`` tiles; their members' rows are gathered as ``(B, C,
     K)`` and scored exactly.  ``exclude_mask`` (B, I) bool is read at the
-    candidates only."""
+    candidates only.  With ``plan`` the tables are this rank's parts and
+    every rank passes the same users: rows come through the plan's
+    owner-masked lookups, the exact rows."""
     if expand_tiles < 1:
         raise ValueError(f"expand_tiles must be >= 1, got {expand_tiles}")
     expand = min(int(expand_tiles), index.num_tiles)
-    u = qz.gather_rows(params.user_table, user_ids)              # (B, K)
+    if plan is None:
+        u = qz.gather_rows(params.user_table, user_ids)          # (B, K)
+    else:
+        u = plan.users.lookup(params.user_table, user_ids)
 
     # Stage 1, coarse: centroids are unit-norm under cosine, so a dot with
     # the normalized user ranks tiles as cosine does.
@@ -165,7 +174,8 @@ def candidate_scores(params: mf.MFParams, user_ids: torch.Tensor,
     cand = index.member_ids[top_tiles].reshape(u.shape[0], -1)   # (B, C)
     dead = cand < 0
     safe = cand.clamp_min(0)
-    cand_e = qz.gather_rows(params.item_table, safe)             # (B, C, K)
+    cand_e = (qz.gather_rows(params.item_table, safe) if plan is None
+              else plan.items.lookup(params.item_table, safe))   # (B, C, K)
     scores = torch.einsum("bk,bck->bc", u, cand_e)
     if similarity == "cosine":
         un = torch.linalg.vector_norm(u, dim=-1, keepdim=True).clamp_min(1e-12)
@@ -180,15 +190,18 @@ def candidate_scores(params: mf.MFParams, user_ids: torch.Tensor,
 def topk_pruned(params: mf.MFParams, user_ids: torch.Tensor, k: int,
                 index: RetrievalIndex, *, expand_tiles: int,
                 similarity: str = "cosine",
-                exclude_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                exclude_mask: Optional[torch.Tensor] = None,
+                plan=None) -> torch.Tensor:
     """Tile-pruned top-k item ids (int64) per user: the stable top-k of
     :func:`candidate_scores` over a fixed ``(B, expand_tiles * tile_rows)``
     candidate block (ties to the earlier slot).  Returns (B, min(k, C))
     ids; a padding slot that survives into the top-k (only when k exceeds
     the live candidates) comes back as -1.  With ``expand_tiles >=
-    num_tiles`` the result is the exact top-k set."""
+    num_tiles`` the result is the exact top-k set.  ``plan`` serves
+    sharded tables (:func:`candidate_scores`), the same ids on every
+    rank."""
     cand, scores = candidate_scores(params, user_ids, index,
                                     expand_tiles=expand_tiles,
                                     similarity=similarity,
-                                    exclude_mask=exclude_mask)
+                                    exclude_mask=exclude_mask, plan=plan)
     return cand.gather(1, stable_topk(scores, min(int(k), cand.shape[1])))

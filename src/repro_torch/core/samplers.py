@@ -11,7 +11,8 @@ to the host, so deciding it costs no device sync.  The item table may be
 fp32 or int8 (``optim/quantization.py``); the tile copy is always fp32.  The
 id-only tile (``tile_emb=None``, :func:`id_tile_init`) is the LM vocab tile:
 only the sampling space is tiled, and its rows are gathered through the live
-table so gradients reach it.  The sharded tile waits for a later slice.
+table so gradients reach it.  :class:`ShardedTileState` keeps one tile per
+data shard (the paper's per-thread tiles), vectorized.
 """
 from __future__ import annotations
 
@@ -102,3 +103,44 @@ def tile_apply_global_grads_many(state: TileState, groups, lr: float) -> TileSta
     ids, grads = tiling.concat_groups(groups)
     return state._replace(tile_emb=tiling.tile_write_through(
         state.tile_ids, state.tile_emb, ids, grads, lr))
+
+
+class ShardedTileState(NamedTuple):
+    """Vectorized tiles for S shards (the paper's per-thread tiles):
+    ``tile_ids`` (S, N1) int64, each row distinct and sorted, ``tile_emb``
+    (S, N1, K) their rows, ``step`` (host int) shared by every shard, which
+    all refresh on one schedule."""
+
+    tile_ids: torch.Tensor
+    tile_emb: torch.Tensor
+    step: int
+
+
+def _sharded_unique_ids(gen: torch.Generator, num_items: int, num_shards: int,
+                        tile_size: int) -> torch.Tensor:
+    """Per-shard distinct sorted ids (the single tile's invariant: one tile
+    row per id keeps the write-through exact, and the sorted-intersection
+    write-through binary-searches), drawn shard after shard from ``gen``."""
+    return torch.stack([sample_unique(gen, num_items, tile_size)
+                        for _ in range(num_shards)])
+
+
+def sharded_tile_init(gen: torch.Generator, item_table: torch.Tensor,
+                      tile_size: int, num_shards: int) -> ShardedTileState:
+    """Per-shard tile init from an fp32 item table: independent draws, so
+    each shard caches its own rows."""
+    ids = _sharded_unique_ids(gen, item_table.shape[0], num_shards, tile_size)
+    return ShardedTileState(ids, item_table[ids], 0)
+
+
+def sharded_tile_refresh(state: ShardedTileState, gen: torch.Generator,
+                         item_table: torch.Tensor,
+                         refresh_interval: int) -> ShardedTileState:
+    """Interval-gated redraw of every shard's tile ids and rows (fp32
+    tables), else count the step."""
+    if state.step >= refresh_interval - 1:
+        ids = _sharded_unique_ids(gen, item_table.shape[0],
+                                  state.tile_ids.shape[0],
+                                  state.tile_ids.shape[1])
+        return ShardedTileState(ids, item_table[ids], 0)
+    return ShardedTileState(state.tile_ids, state.tile_emb, state.step + 1)

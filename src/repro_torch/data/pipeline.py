@@ -26,12 +26,14 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import weakref
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.core.mf import Batch, fold_in, generator, resolve_device
+from repro_torch.distributed.sharding import shard_bounds  # noqa: F401 (re-export)
 from repro_torch.train.shapes import ShapeCounter
 
 #: salt separating the batch draw from the step's own draws (which use
@@ -225,21 +227,60 @@ def _apply_events_(train_pos, item_weights, row_count, write_pos, users,
     return (row_count > 0) & ~seen_user, (item_weights > 0) & ~seen_item
 
 
-def device_cf_dataset(ds: CFDataset, device) -> DeviceCFDataset:
+_DEVICE_VIEWS: dict = {}
+
+
+def device_cf_dataset(ds: CFDataset, device, *,
+                      allow_empty_users: Optional[bool] = None
+                      ) -> DeviceCFDataset:
     """Upload ``train_pos`` and the items' training-interaction counts once,
     ahead of the epoch (the counts as the reference's ``device_cf_dataset``
-    makes them).  Raises when every user is empty (every batch row would be
-    fallback noise)."""
-    if ds.num_users > 0 and not (ds.train_pos >= 0).any():
-        raise ValueError("every user has zero train interactions — an "
-                         "offline device view would sample pure fallback noise")
-    counts = np.bincount(ds.train_pos[ds.train_pos >= 0].ravel(),
-                         minlength=ds.num_items)
-    return DeviceCFDataset(ds.num_users, ds.num_items,
-                           torch.as_tensor(ds.train_pos, dtype=torch.int64,
-                                           device=device),
-                           torch.as_tensor(counts, dtype=torch.float32,
-                                           device=device))
+    makes them).
+
+    Memoized per (``CFDataset`` instance, device), and dropped when the
+    dataset is garbage-collected, so repeated callers share one device copy;
+    datasets are treated as immutable (a streaming view that changes is
+    :func:`stream_ring_dataset`'s).
+
+    A zero-interaction user has an empty sample range: a batch row drawn
+    for it falls back to a uniform item (:func:`cf_batch_device`).
+    ``allow_empty_users`` sets the contract, with the reference's messages:
+
+    * ``None`` (default): empty users are tolerated, but an *all*-empty
+      dataset (the cold-start stream case) raises, because every batch row
+      would be fallback noise; cold starts belong to
+      :func:`stream_ring_dataset`.
+    * ``False``: any empty user raises (strict offline mode).
+    * ``True``: anything goes (the caller owns sampling)."""
+    empty = ~(ds.train_pos >= 0).any(axis=1)
+    if allow_empty_users is not True:
+        if empty.all() and ds.num_users > 0:
+            raise ValueError(
+                "every user has zero train interactions — an offline device "
+                "view would sample pure fallback noise.  For cold-start "
+                "streaming build the view with stream_ring_dataset(...) and "
+                "feed it events via apply_events; pass "
+                "allow_empty_users=True to override")
+        if allow_empty_users is False and empty.any():
+            raise ValueError(
+                f"{int(empty.sum())} user(s) have zero train interactions "
+                "(empty sample ranges); their batch rows fall back to a "
+                "uniform item draw — pass allow_empty_users=None to accept "
+                "the fallback or clean the dataset")
+    device = torch.device(device)
+    key = (id(ds), str(device))
+    view = _DEVICE_VIEWS.get(key)
+    if view is None:
+        counts = np.bincount(ds.train_pos[ds.train_pos >= 0].ravel(),
+                             minlength=ds.num_items)
+        view = DeviceCFDataset(ds.num_users, ds.num_items,
+                               torch.as_tensor(ds.train_pos, dtype=torch.int64,
+                                               device=device),
+                               torch.as_tensor(counts, dtype=torch.float32,
+                                               device=device))
+        _DEVICE_VIEWS[key] = view
+        weakref.finalize(ds, _DEVICE_VIEWS.pop, key, None)
+    return view
 
 
 def stream_ring_dataset(num_users: int, num_items: int, capacity: int = 32,
@@ -306,6 +347,18 @@ def cf_batch(ds: CFDataset, step: int, batch_size: int, history_len: int = 0,
                                 device=resolve_device(device))
     return _batch_from(train_pos, ds.num_users, ds.num_items, seed, step,
                        batch_size, history_len)
+
+
+def cf_batch_shard(ds: DeviceCFDataset, seed: int, step: int,
+                   global_batch: int, shard: int, num_shards: int,
+                   history_len: int = 0) -> Batch:
+    """Shard ``shard``'s rows of the *global* (seed, step) batch: every shard
+    draws the whole batch (ids only, cheap) and keeps its contiguous row
+    range, so the concatenated shards equal :func:`cf_batch_device`'s batch
+    bit for bit."""
+    start, stop = shard_bounds(global_batch, num_shards)[shard]
+    full = cf_batch_device(ds, seed, step, global_batch, history_len)
+    return Batch(*(None if x is None else x[start:stop] for x in full))
 
 
 def _batch_from(train_pos: torch.Tensor, num_users: int, num_items: int,

@@ -1,5 +1,7 @@
-"""Parameter definition trees (the port of ``src/repro/models/params.py``,
-without the sharding specs, which wait for the mesh slice).
+"""Parameter definition trees (the port of ``src/repro/models/params.py``)
+and :func:`fit_spec`, the divisibility-aware spec fitting that the MF
+sharding plan uses (the LM's ``partition_specs`` and ``fsdpify`` wait for
+LM sharding).
 
 Models declare their parameters as nested dicts of :class:`ParamDef`;
 :func:`materialize` turns such a tree into tensors.  The leaves are visited
@@ -19,6 +21,7 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.core.mf import fold_in, generator
+from repro_torch.distributed.sharding import PartitionSpec
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,3 +90,54 @@ def materialize(key: int, tree, dtype=torch.float32, device="cpu"):
 def count_params(tree) -> int:
     """Total element count of a ParamDef or tensor tree."""
     return sum(math.prod(leaf.shape) for _, leaf in tree_items(tree))
+
+
+def fit_spec(shape: tuple, spec, mesh_shape: dict):
+    """Make a logical spec (a tuple of axis names, tuples of names or None
+    per dimension) legal for a concrete shape and mesh; returns a
+    :class:`~repro_torch.distributed.sharding.PartitionSpec`.
+
+    1. Axes absent from the mesh are dropped.
+    2. An axis whose dimension is not divisible by the axis size is dropped
+       there and *relocated* to the largest free dimension that divides it
+       (never dimension 0 of a stacked tensor of 3 or more dimensions with
+       an unsharded lead: that is the scan layer dimension).
+    The reference's rule, line for line."""
+    axes = list(spec) + [None] * (len(shape) - len(spec))
+    axes = axes[:len(shape)]
+
+    def axis_prod(ax) -> int:
+        if ax is None:
+            return 1
+        n = 1
+        for a in (ax if isinstance(ax, tuple) else (ax,)):
+            n *= mesh_shape.get(a, 1)
+        return n
+
+    def present(ax):
+        if ax is None:
+            return None
+        items = tuple(a for a in (ax if isinstance(ax, tuple) else (ax,))
+                      if a in mesh_shape)
+        if not items:
+            return None
+        return items if len(items) > 1 else items[0]
+
+    axes = [present(a) for a in axes]
+    dropped = []
+    for i, ax in enumerate(axes):
+        if ax is not None and shape[i] % axis_prod(ax) != 0:
+            dropped.append(ax)
+            axes[i] = None
+
+    protect0 = len(shape) >= 3 and (len(spec) == 0 or list(spec)[0] is None)
+    start = 1 if protect0 else 0
+    for ax in dropped:
+        n = axis_prod(ax)
+        candidates = sorted(
+            (i for i in range(start, len(shape))
+             if axes[i] is None and shape[i] % n == 0 and shape[i] >= n),
+            key=lambda i: -shape[i])
+        if candidates:
+            axes[candidates[0]] = ax
+    return PartitionSpec(*axes)

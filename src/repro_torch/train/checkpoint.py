@@ -25,6 +25,12 @@ Layout::
   explicit ``step`` is strict.
 - **Retention**: keep the last ``keep`` *valid* checkpoints, so a run whose
   newest saves are corrupt never loses its last good state.
+- **Sharded runs** (``plan=``, a ``core/mf_distributed.py::MFShardingPlan``):
+  a save gathers the whole state and rank 0 alone writes it, in the layout
+  above, while the others wait; a restore reads the whole files and keeps
+  this rank's part.  The files do not depend on the world size, so a
+  checkpoint saved by 2 ranks restores on 1 and the other way round, and
+  either package reads it.
 """
 from __future__ import annotations
 
@@ -139,9 +145,17 @@ def sweep_tmp(ckpt_dir: str) -> list[str]:
 
 
 def save(ckpt_dir: str, step: int, tree: Any, extra: Optional[dict] = None,
-         keep: int = 3) -> str:
+         keep: int = 3, *, plan=None) -> str:
     """Write a checkpoint of ``tree`` atomically; returns the committed
-    path."""
+    path.  With ``plan``, ``tree`` is this rank's part of a sharded state:
+    every rank must call, the whole state is gathered, rank 0 writes it and
+    the others wait for the commit."""
+    if plan is not None:
+        whole = plan.gather_state(tree)
+        if plan.mesh.rank == 0:
+            save(ckpt_dir, step, whole, extra, keep)
+        plan.mesh.barrier()
+        return _step_dir(ckpt_dir, step)
     sweep_tmp(ckpt_dir)
     final = _step_dir(ckpt_dir, step)
     tmp = final + ".tmp"
@@ -238,15 +252,9 @@ def quarantine(ckpt_dir: str, step: int) -> str:
     return dst
 
 
-def restore(ckpt_dir: str, target: Any, step: Optional[int] = None):
-    """Restore a checkpoint into the structure of ``target``; returns
-    ``(tree, step, extra)``.  Each leaf is a new tensor on the target leaf's
-    device with its dtype (or a host int where the target has one).
-
-    ``step=None`` takes the newest valid checkpoint, quarantining corrupt
-    ones on the way; ``FileNotFoundError`` when none is left.  An explicit
-    ``step`` raises ``FileNotFoundError`` (naming the steps there are) when
-    it is missing and :class:`CheckpointCorruptError` when it is corrupt."""
+def _choose_step(ckpt_dir: str, step: Optional[int]) -> int:
+    """The step :func:`restore` loads: the newest valid one (quarantining
+    corrupt ones on the way) or the requested one, verified."""
     if step is None:
         candidates = _steps(ckpt_dir)
         if not candidates:
@@ -255,26 +263,54 @@ def restore(ckpt_dir: str, target: Any, step: Optional[int] = None):
             if verify_step(ckpt_dir, s):
                 quarantine(ckpt_dir, s)
                 continue
-            step = s
-            break
-        if step is None:
-            raise FileNotFoundError(
-                f"no valid checkpoint under {ckpt_dir}: all "
-                f"{len(candidates)} candidate(s) failed verification and "
-                "were quarantined as step_*.corrupt")
-    else:
-        path = _step_dir(ckpt_dir, step)
-        if not os.path.isdir(path):
-            avail = _steps(ckpt_dir)
-            raise FileNotFoundError(
-                f"checkpoint step {step} not found under {ckpt_dir} "
-                f"(available steps: {avail if avail else 'none'})")
-        problems = verify(path)
-        if problems:
-            raise CheckpointCorruptError(
-                f"checkpoint step {step} failed verification: "
-                + "; ".join(problems))
+            return s
+        raise FileNotFoundError(
+            f"no valid checkpoint under {ckpt_dir}: all "
+            f"{len(candidates)} candidate(s) failed verification and "
+            "were quarantined as step_*.corrupt")
+    path = _step_dir(ckpt_dir, step)
+    if not os.path.isdir(path):
+        avail = _steps(ckpt_dir)
+        raise FileNotFoundError(
+            f"checkpoint step {step} not found under {ckpt_dir} "
+            f"(available steps: {avail if avail else 'none'})")
+    problems = verify(path)
+    if problems:
+        raise CheckpointCorruptError(
+            f"checkpoint step {step} failed verification: "
+            + "; ".join(problems))
+    return step
 
+
+def restore(ckpt_dir: str, target: Any, step: Optional[int] = None, *,
+            plan=None):
+    """Restore a checkpoint into the structure of ``target``; returns
+    ``(tree, step, extra)``.  Each leaf is a new tensor on the target leaf's
+    device with its dtype (or a host int where the target has one).
+
+    ``step=None`` takes the newest valid checkpoint, quarantining corrupt
+    ones on the way; ``FileNotFoundError`` when none is left.  An explicit
+    ``step`` raises ``FileNotFoundError`` (naming the steps there are) when
+    it is missing and :class:`CheckpointCorruptError` when it is corrupt.
+
+    With ``plan`` (the counterpart of the reference's ``shardings``),
+    ``target`` is this rank's part of a sharded state: every rank must
+    call; rank 0 chooses and verifies the step, every rank reads the whole
+    files and keeps its own part (``plan.place_state``), whatever world
+    size wrote them."""
+    if plan is None:
+        step = _choose_step(ckpt_dir, step)
+    else:
+        chosen = None
+        if plan.mesh.rank == 0:
+            try:
+                chosen = _choose_step(ckpt_dir, step)
+            except (FileNotFoundError, CheckpointCorruptError) as e:
+                chosen = e             # raised on every rank below
+        chosen = plan.mesh.broadcast(chosen)
+        if isinstance(chosen, BaseException):
+            raise chosen
+        step = chosen
     path = _step_dir(ckpt_dir, step)
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
@@ -282,9 +318,14 @@ def restore(ckpt_dir: str, target: Any, step: Optional[int] = None):
 
     def load(name, like):
         arr = np.load(os.path.join(path, by_name[name]["file"]))
+        if plan is not None and isinstance(like, torch.Tensor):
+            return torch.as_tensor(arr).to(dtype=like.dtype)   # host, whole
         return leaf_from_numpy(arr, like)
 
-    return map_leaves(target, load), step, manifest["extra"]
+    tree = map_leaves(target, load)
+    if plan is not None:
+        tree = plan.place_state(tree, device=target.params.user_table.device)
+    return tree, step, manifest["extra"]
 
 
 def _gc(ckpt_dir: str, keep: int):

@@ -9,7 +9,8 @@ window.  Every step's draws are pure in (seed, step), so any K gives the same
 trajectory, and a run restored from a checkpoint at step N replays the
 uninterrupted run bit for bit.  Windows end on the checkpoint schedule and
 on an armed failure injection, so both land on window edges, as in the
-reference.  The mesh waits for a later slice; capturing each window as a
+reference.  Under a mesh (``train_mf(mesh=)``) every rank runs the same
+loop on its shard (``core/mf_distributed.py``); capturing each window as a
 CUDA graph is a later optimization.
 
 The LM step (:func:`make_lm_train_step_raw`) takes the gradients of every
@@ -28,8 +29,10 @@ from typing import Any, Callable, NamedTuple, Optional
 import torch
 
 from repro_torch.core import mf, samplers
+from repro_torch.core import mf_distributed as mfd
 from repro_torch.core.engine import StepEngine, resolve_engine
 from repro_torch.data import pipeline
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import lm
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.params import tree_from_items, tree_items, tree_map
@@ -103,7 +106,7 @@ def train_mf(cfg: mf.MFConfig, ds: pipeline.CFDataset, steps: int, *,
              engine: Optional[StepEngine] = None, item_weights=None,
              ckpt_dir: Optional[str] = None, ckpt_every: int = 200,
              fail_at_step: Optional[int] = None,
-             steps_per_dispatch: int = 1, device=None,
+             steps_per_dispatch: int = 1, mesh=None, device=None,
              log: Callable[[str], None] = print):
     """HEAT CF training (the Fig. 3 loop) with restart on failure; returns
     ``(state, losses)``.
@@ -121,11 +124,29 @@ def train_mf(cfg: mf.MFConfig, ds: pipeline.CFDataset, steps: int, *,
     every ``ckpt_every`` steps, and on a :class:`SimulatedFailure` (armed by
     ``fail_at_step``, fired once) restores the latest valid checkpoint — or
     starts over when there is none — at most ``MAX_RESTARTS`` times.  The
-    losses of replayed steps are logged again, as in the reference."""
+    losses of replayed steps are logged again, as in the reference.
+
+    ``mesh`` (default: the active mesh when it has more than one rank) runs
+    the same loop sharded, on every rank of the mesh at once, each on its
+    ``device``: the state is placed by ``mf_distributed.make_sharding_plan``
+    (user rows over the data axes, item rows over ``model``), each step
+    draws the global batch and exchanges explicitly
+    (``mf_distributed.sharded_train_step``), and checkpoints hold the whole
+    state (``checkpoint.save(plan=)``).  It returns this rank's state
+    (``plan.gather_state`` makes it whole) and the global batch's losses,
+    the same on every rank; an injected failure fires on every rank at the
+    same step."""
     dev = mf.resolve_device(device)
     if engine is None:
         engine = resolve_engine(cfg)
-    state = mf.init_mf(seed, cfg, device=dev)
+    mesh = mesh if mesh is not None else shd.active_mesh()
+    plan = mfd.make_sharding_plan(cfg, mesh) if mesh is not None else None
+
+    def init_state():
+        state = mf.init_mf(seed, cfg, device=dev)
+        return plan.place_state(state) if plan is not None else state
+
+    state = init_state()
     dds = pipeline.device_cf_dataset(ds, dev)
     if item_weights is None and engine.sampler_name == "popularity":
         item_weights = dds.item_weights
@@ -136,11 +157,11 @@ def train_mf(cfg: mf.MFConfig, ds: pipeline.CFDataset, steps: int, *,
 
     executor = EpochExecutor(
         mf.make_scan_body(cfg, batch_fn, seed, engine=engine,
-                          item_weights=item_weights),
+                          item_weights=item_weights, plan=plan),
         steps_per_dispatch)
     start = 0
     if ckpt_dir and ckpt.latest_step(ckpt_dir) is not None:
-        state, start, _ = ckpt.restore(ckpt_dir, state)
+        state, start, _ = ckpt.restore(ckpt_dir, state, plan=plan)
         log(f"[mf] resumed from step {start}")
 
     losses: list = []
@@ -156,16 +177,18 @@ def train_mf(cfg: mf.MFConfig, ds: pipeline.CFDataset, steps: int, *,
             losses.extend(window)
             step += length
             if ckpt_dir and step % ckpt_every == 0:
-                ckpt.save(ckpt_dir, step, state)
+                if plan is not None:
+                    state = plan.settle(state)
+                ckpt.save(ckpt_dir, step, state, plan=plan)
         except SimulatedFailure as e:
             restarts += 1
             if restarts > MAX_RESTARTS or not ckpt_dir:
                 raise
             log(f"[mf] {e} -> restoring")
             if ckpt.latest_step(ckpt_dir) is not None:
-                state, step, _ = ckpt.restore(ckpt_dir, state)
+                state, step, _ = ckpt.restore(ckpt_dir, state, plan=plan)
             else:       # failed before the first checkpoint: start over
-                state, step = mf.init_mf(seed, cfg, device=dev), 0
+                state, step = init_state(), 0
     return state, losses
 
 
@@ -181,7 +204,8 @@ INIT_STREAM = 1 << 40
 @dataclasses.dataclass
 class TrainerConfig:
     """LM trainer knobs (steps, lr, batch, checkpointing, failure
-    injection): the reference's fields, less the mesh."""
+    injection): the reference's fields, less the mesh (LM sharding waits
+    for a later slice)."""
 
     steps: int = 100
     lr: float = 1e-3
