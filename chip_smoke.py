@@ -18,7 +18,9 @@ rounds through kernels #1, #2 and #6, refresh, checkpoints, crash resume,
 the divergence guard and the chaos harness); and sharded MF training over
 ``torch.distributed`` (one NCCL rank, two gloo ranks sharing the card,
 shard-aware checkpoints, the CLI's ``--mesh-data``) through kernels #1, #2
-and #6 on every rank.
+and #6 on every rank; and LM serving (prefill, KV-cache decode, the serve
+CLI) of smollm-360m, granite-8b and a 4-layer moonshot-v1-16b-a3b, the MoE
+model first trained with the HEAT head on kernels #3 and #4.
 Phases, one line each (a few print more):
 
   1. the card (name and power limit from nvidia-smi);
@@ -169,7 +171,30 @@ Phases, one line each (a few print more):
      steps within 1e-5 of the unsharded run's step 16; every run asserts 1,
      1, 2 launches of #1, #2, #6 a step on every rank; (e) ``launch.train
      --mf --mesh host --mesh-data 2 --dist-backend gloo`` at full width for
-     4 steps, its lines; and the phase's seconds.
+     4 steps, its lines; and the phase's seconds;
+ 19. LM serving through ``prefill`` -> ``pad_cache`` -> ``decode_step`` at
+     full width (fp32 weights from key 0; 8 random prompts of 1,024 tokens;
+     ``launch/serve.py``'s options, so a bf16 cache; 64 greedy decode steps
+     with the tokens kept on the card): prefill ms and tokens/s, ms a
+     decode step and tokens/s against the step's byte bound (every weight
+     and cached row read once), peak device memory, no launch of the
+     port's kernels, one profiled decode step (launches, busy share), and
+     the reference's check that the decode logits at position 1,024 equal
+     those of a prefill of 1,025 tokens on 2 prompts (rel < 2e-3 with an
+     fp32 cache, the attention projections at 1/sqrt of their contraction
+     width and an MoE prefill made dropless; the bf16 cache's rel and the
+     reference init's, which fails at full depth, printed): (a)
+     smollm-360m (32 layers, d=960), then
+     ``launch.serve.main([])`` at its reduced defaults on the card; (b)
+     granite-8b (36 layers, d=4,096, 8.25B parameters, 33 GB); (c)
+     moonshot-v1-16b-a3b at full width cut to 4 of its 48 layers (64
+     experts top-6, vocab 163,840, 2.95B parameters): ``train_lm`` for 8
+     AdamW steps at lr 1e-3 on one fixed batch of 4 x 512 with the HEAT head
+     on ``pallas`` (finite losses, the fixed-batch loss falling, kernels #3
+     and #4 launched once a step and nothing else, peak memory), #3 and #4
+     against their plain versions on the trained model's head inputs (T =
+     2,044, K = 2,048, n = 128: errors, µs, bounds), then the serving run on
+     the trained weights; and the phase's seconds.
 
 Then it prints the total seconds, the kernels' JSON line, the card line, and
 as its last line ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
@@ -364,20 +389,20 @@ def dequant_summary(kd: dict) -> str:
             f"partial yardstick)")
 
 
-def lm_eval_loss(params, cfg, opts, tile, dev) -> float:
-    """The HEAT loss on the fixed batch phase 10 trains on (``lm_batch``
-    seed 0, step 0) with the fixed key 1000 and a fixed tile, without
-    gradients."""
+def lm_eval_loss(params, cfg, opts, tile, dev, b: int = LM_B, s: int = LM_S) -> float:
+    """The HEAT loss on the fixed batch phase 10 (or 19c) trains on
+    (``lm_batch`` seed 0, step 0, b x s) with the fixed key 1000 and a fixed
+    tile, without gradients."""
     import torch
     from repro_torch.data import pipeline
     from repro_torch.models import lm
-    batch = pipeline.lm_batch(0, LM_B, LM_S, cfg.vocab, seed=0, device=dev)
+    batch = pipeline.lm_batch(0, b, s, cfg.vocab, seed=0, device=dev)
     with torch.no_grad():
         loss, _ = lm.forward_train(params, batch, cfg, opts, 1000, tile)
     return loss.item()
 
 
-def lm_head_inputs(params, cfg, opts, tile, dev):
+def lm_head_inputs(params, cfg, opts, tile, dev, b: int = LM_B, s: int = LM_S):
     """The HEAT head's inputs for :func:`lm_eval_loss`'s batch and key:
     hidden rows u (T, d), positives p (T, d), the n shared negatives (n, d),
     and the batch."""
@@ -385,10 +410,10 @@ def lm_head_inputs(params, cfg, opts, tile, dev):
     from repro_torch.core import mf
     from repro_torch.data import pipeline
     from repro_torch.models import lm
-    batch = pipeline.lm_batch(0, LM_B, LM_S, cfg.vocab, seed=0, device=dev)
+    batch = pipeline.lm_batch(0, b, s, cfg.vocab, seed=0, device=dev)
     table = params["out_embed"]
     with torch.no_grad():
-        h = lm._run_stack(params, lm.embed_inputs(params, batch, cfg), cfg, opts)
+        h, _ = lm._run_stack(params, lm.embed_inputs(params, batch, cfg), cfg, opts)
         u = h[:, :-1].reshape(-1, cfg.d_model).contiguous()
         p = table[batch["tokens"][:, 1:].reshape(-1)]
         local = torch.randint(0, tile.tile_ids.numel(), (cfg.heat.num_negatives,),
@@ -396,6 +421,58 @@ def lm_head_inputs(params, cfg, opts, tile, dev):
                                                      dev), device=dev)
         negs = table[tile.tile_ids[local]]
     return u, p, negs, batch
+
+
+def shared_ccl_entries(u, p, negs, flush) -> list:
+    """Kernels #3 and #4 against their plain versions on the HEAT head's
+    inputs (hidden rows u and positives p (T, K), shared negatives (n, K)),
+    each called twice and compared bit for bit: the kernels-line entries
+    (without their launches) with errors, times and bounds."""
+    import torch
+    from repro_torch.kernels import ccl_similarity
+    t_rows, k = u.shape
+    n = negs.shape[0]
+    kernels = []
+    stats = ccl_similarity.ccl_stats_shared(u, p, negs)
+    err = max_err(stats, ccl_similarity.ccl_stats_shared_plain(u, p, negs))
+    assert all(torch.equal(a, b_) for a, b_ in zip(
+        stats, ccl_similarity.ccl_stats_shared(u, p, negs))), \
+        "ccl_stats_shared: two calls differ"
+    b_ms, b_by = bound(4 * (2 * t_rows * k + n * k) + 4 * (3 * t_rows + n + t_rows * n),
+                       2 * t_rows * k * (3 + n) + 2 * n * k)
+    kernels.append(dict(
+        name="ccl_stats_shared", route="cuda",
+        source="src/repro_torch/csrc/ccl_stats_shared.cu",
+        replaces="src/repro/kernels/ccl_similarity.py:128", max_abs_err=err,
+        ms=time_ms(lambda: ccl_similarity.ccl_stats_shared(u, p, negs), flush),
+        plain_ms=time_ms(lambda: ccl_similarity.ccl_stats_shared_plain(u, p, negs),
+                         flush),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=time_ms(lambda: torch.matmul(u, negs.T), flush)))
+    # Cotangent T: each row's weight (1/T) times g is 1, so the gradients are
+    # of order one, not 1/T.
+    w = torch.full((t_rows, 1), 1.0 / t_rows, device=u.device)
+    g = torch.full((1,), float(t_rows), device=u.device)
+    bwd_args = (u, p, negs, *stats, w, g)
+    got = ccl_similarity.ccl_bwd_shared(*bwd_args, mu=1.0, theta=0.0)
+    err = max_err(got, ccl_similarity.ccl_bwd_shared_plain(*bwd_args, mu=1.0, theta=0.0))
+    again = ccl_similarity.ccl_bwd_shared(*bwd_args, mu=1.0, theta=0.0)
+    assert all(torch.equal(a, b_) for a, b_ in zip(got, again)), \
+        "ccl_bwd_shared: two calls differ"
+    del got, again
+    nbytes = (4 * (2 * t_rows * k + n * k + 4 * t_rows + n + t_rows * n + 1)
+              + 4 * (2 * t_rows * k + n * k))
+    b_ms, b_by = bound(nbytes, 4 * t_rows * n * k + 10 * t_rows * k + 10 * t_rows * n)
+    kernels.append(dict(
+        name="ccl_bwd_shared", route="cuda",
+        source="src/repro_torch/csrc/ccl_bwd_shared.cu",
+        replaces="src/repro/kernels/ccl_similarity.py:214", max_abs_err=err,
+        ms=time_ms(lambda: ccl_similarity.ccl_bwd_shared(*bwd_args, mu=1.0,
+                                                         theta=0.0), flush),
+        plain_ms=time_ms(lambda: ccl_similarity.ccl_bwd_shared_plain(
+            *bwd_args, mu=1.0, theta=0.0), flush),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None))
+    return kernels
 
 
 def lm_phases(dev, card: str, flush, counters) -> list:
@@ -480,49 +557,11 @@ def lm_phases(dev, card: str, flush, counters) -> list:
     del executor, body, step_fn
 
     # ---- 11: the LM kernels against their plain versions -------------------
-    kernels = []
     u, p, negs, batch = lm_head_inputs(state.params, cfg, opts, tile0, dev)
     t_rows, k = u.shape
     n = negs.shape[0]
-    stats = ccl_similarity.ccl_stats_shared(u, p, negs)
-    err = max_err(stats, ccl_similarity.ccl_stats_shared_plain(u, p, negs))
-    assert all(torch.equal(a, b_) for a, b_ in zip(
-        stats, ccl_similarity.ccl_stats_shared(u, p, negs))), \
-        "ccl_stats_shared: two calls differ"
-    b_ms, b_by = bound(4 * (2 * t_rows * k + n * k) + 4 * (3 * t_rows + n + t_rows * n),
-                       2 * t_rows * k * (3 + n) + 2 * n * k)
-    kernels.append(dict(
-        name="ccl_stats_shared", route="cuda",
-        source="src/repro_torch/csrc/ccl_stats_shared.cu",
-        replaces="src/repro/kernels/ccl_similarity.py:128", max_abs_err=err,
-        ms=time_ms(lambda: ccl_similarity.ccl_stats_shared(u, p, negs), flush),
-        plain_ms=time_ms(lambda: ccl_similarity.ccl_stats_shared_plain(u, p, negs),
-                         flush),
-        bound_ms=b_ms, bound_by=b_by,
-        library_ms=time_ms(lambda: torch.matmul(u, negs.T), flush)))
-    # Cotangent T: each row's weight (1/T) times g is 1, so the gradients are
-    # of order one, not 1/T.
+    kernels = shared_ccl_entries(u, p, negs, flush)
     w = torch.full((t_rows, 1), 1.0 / t_rows, device=dev)
-    g = torch.full((1,), float(t_rows), device=dev)
-    bwd_args = (u, p, negs, *stats, w, g)
-    got = ccl_similarity.ccl_bwd_shared(*bwd_args, mu=1.0, theta=0.0)
-    err = max_err(got, ccl_similarity.ccl_bwd_shared_plain(*bwd_args, mu=1.0, theta=0.0))
-    again = ccl_similarity.ccl_bwd_shared(*bwd_args, mu=1.0, theta=0.0)
-    assert all(torch.equal(a, b_) for a, b_ in zip(got, again)), \
-        "ccl_bwd_shared: two calls differ"
-    del got, again
-    nbytes = (4 * (2 * t_rows * k + n * k + 4 * t_rows + n + t_rows * n + 1)
-              + 4 * (2 * t_rows * k + n * k))
-    b_ms, b_by = bound(nbytes, 4 * t_rows * n * k + 10 * t_rows * k + 10 * t_rows * n)
-    kernels.append(dict(
-        name="ccl_bwd_shared", route="cuda",
-        source="src/repro_torch/csrc/ccl_bwd_shared.cu",
-        replaces="src/repro/kernels/ccl_similarity.py:214", max_abs_err=err,
-        ms=time_ms(lambda: ccl_similarity.ccl_bwd_shared(*bwd_args, mu=1.0,
-                                                         theta=0.0), flush),
-        plain_ms=time_ms(lambda: ccl_similarity.ccl_bwd_shared_plain(
-            *bwd_args, mu=1.0, theta=0.0), flush),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None))
     for kd in kernels:
         kd["launches"] = launches[kd["name"]]
 
@@ -551,7 +590,7 @@ def lm_phases(dev, card: str, flush, counters) -> list:
           f"plain versions on the CPU {want_lg[0].item():.6f}; loss, "
           f"T*gradients of u, p, negs and the gradient of w: max abs err "
           f"{loss_err:.3e}", flush=True)
-    del stats, bwd_args, got, want_lg
+    del got, want_lg
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(14)
@@ -1967,6 +2006,280 @@ def sharding_phase(dev, card: str, ds0, counters) -> float:
     return secs
 
 
+#: phase 19: LM serving at full width: SERVE_B prompts of SERVE_S tokens,
+#: then SERVE_STEPS greedy decode steps with the default bf16 cache
+#: (``launch/serve.py``'s options at the full widths).
+SERVE_B, SERVE_S, SERVE_STEPS = 8, 1024, 64
+#: phase 19c: moonshot-v1-16b-a3b cut to MOE_LAYERS of its 48 layers, trained
+#: for MOE_STEPS AdamW steps on one fixed batch of MOE_B x MOE_S tokens.
+MOE_LAYERS, MOE_B, MOE_S, MOE_STEPS = 4, 4, 512, 8
+#: the reference's decode-after-prefill check (``tests/test_models.py``).
+DECODE_REL = 2e-3
+
+
+def profile_call(fn, wall_s: float, top_n: int = 5) -> str:
+    """One call of ``fn`` under the profiler: its device launches and busy
+    time against the unprofiled wall time ``wall_s`` of the same call."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in kern)
+    if not kern or busy_us <= 0:
+        return "the profiler saw no device time: not measured"
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:top_n]
+    names = ", ".join(f"{e.key[:40]} {e.self_device_time_total:.1f} us" for e in top)
+    return (f"{sum(e.count for e in kern)} kernel launches, device busy "
+            f"{busy_us:.1f} us of {1e6 * wall_s:.1f} us unprofiled "
+            f"({100 * busy_us / (1e6 * wall_s):.1f}%); top: {names}")
+
+
+def decode_bound(params, cfg, rows: int, cache_bytes_per_row: int):
+    """Least time (ms) of one decode step of SERVE_B tokens with ``rows``
+    cached positions: every weight read once (of the input embedding only
+    the SERVE_B rows), each cached K/V row read once, the new rows and the
+    fp32 logits written; and its operations, every product at the fp32 rate
+    (an MoE step runs each expert on its capacity of SERVE_B slots, so its
+    products are 2 x SERVE_B x every weight too) plus the attention's."""
+    n_weights = sum(x.numel() for x in _leaves(params)) - cfg.vocab * cfg.d_model
+    nbytes = (4 * n_weights + 4 * SERVE_B * cfg.d_model
+              + cache_bytes_per_row * (rows + 1) + 4 * SERVE_B * cfg.vocab)
+    flops = (2 * SERVE_B * n_weights
+             + 4 * SERVE_B * cfg.n_heads * cfg.head_dim * rows * cfg.n_layers)
+    return bound(nbytes, flops)
+
+
+def _leaves(tree):
+    from repro_torch.models.params import tree_items
+    return [x for _, x in tree_items(tree)]
+
+
+def condition_attention_(tree: dict, cfg) -> None:
+    """Scale every attention projection in place to 1/sqrt of its
+    contraction width (``wq``, ``wk``, ``wv``: d; ``wo``: Hq x hd), where
+    the reference's init divides by the second-to-last dimension (Hq, Hkv or
+    hd) and so makes the attention logits of order 100."""
+    d, hq, hkv = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
+    for k, v in tree.items():
+        if k == "attn":
+            v["wq"].mul_(math.sqrt(hq / d))
+            v["wk"].mul_(math.sqrt(hkv / d))
+            v["wv"].mul_(math.sqrt(hkv / d))
+            v["wo"].mul_(1 / math.sqrt(hq))
+        elif isinstance(v, dict):
+            condition_attention_(v, cfg)
+
+
+def lm_serve(dev, card: str, label: str, name: str, cfg, params, counters) -> None:
+    """Phase 19's serving run of one model: prefill SERVE_B x SERVE_S
+    random tokens, pad the cache, SERVE_STEPS greedy decode steps with the
+    bf16 cache (tokens kept on the card, one readback), one profiled step,
+    and the decode-after-prefill check (the reference's ``rel < 2e-3``)
+    held with the attention projections conditioned in place
+    (:func:`condition_attention_`), the reference init's rel printed."""
+    import torch
+    from repro_torch.core import mf
+    from repro_torch.models import lm
+    opts = lm.TrainOptions(loss="softmax", remat="none", attn_chunk=min(1024, SERVE_S))
+    tokens = torch.randint(0, cfg.vocab, (SERVE_B, SERVE_S + 1),
+                           generator=mf.generator(19, dev), device=dev)
+    prompt, nxt = tokens[:, :SERVE_S], tokens[:, SERVE_S:]
+    _, warm = lm.prefill(params, {"tokens": prompt[:, :16]}, cfg, opts)   # warm-up
+    lm.decode_step(params, lm.pad_cache(warm, cfg, 17), nxt, 16, cfg, opts)
+    del warm
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters:
+        c.reset()
+    t0 = time.perf_counter()
+    logits, cache = lm.prefill(params, {"tokens": prompt}, cfg, opts)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    cache = lm.pad_cache(cache, cfg, SERVE_S + SERVE_STEPS + 1)   # +1: the profiled step
+    members = (cache.kv,) if isinstance(cache.kv, lm.KVCache) else cache.kv
+    kv = members[0]
+    cache_gb = sum(2 * m.k.numel() * m.k.element_size() for m in members) / 1e9
+    row_bytes = sum(2 * m.k[:, :, 0].numel() * m.k.element_size() for m in members)
+    tok = logits.argmax(-1)[:, None]
+    generated = [tok]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(SERVE_STEPS):
+        step_logits, cache = lm.decode_step(params, cache, tok, SERVE_S + i, cfg, opts)
+        tok = step_logits[:, 0].argmax(-1)[:, None]
+        generated.append(tok)
+    out = torch.cat(generated, dim=1).cpu()            # the one readback
+    t_step = (time.perf_counter() - t0) / SERVE_STEPS
+    launches = {c.name: c.count() for c in counters}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    assert kv.k.dtype == torch.bfloat16 and kv.k.shape[2] == SERVE_S + SERVE_STEPS + 1
+    assert all(v == 0 for v in launches.values()), launches
+    assert out.shape == (SERVE_B, SERVE_STEPS + 1)
+    assert 0 <= int(out.min()) and int(out.max()) < cfg.vocab
+    assert bool(torch.isfinite(step_logits).all()) and bool(torch.isfinite(logits).all())
+    pos = SERVE_S + SERVE_STEPS
+    b_ms, b_by = decode_bound(params, cfg, pos, row_bytes)
+    n_params = sum(x.numel() for x in _leaves(params))
+    print(f"[{label} serve] {name} ({cfg.n_layers} layers, d={cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads, vocab {cfg.vocab}, {n_params} "
+          f"parameters, fp32): prefill {SERVE_B} x {SERVE_S} tokens in "
+          f"{1e3 * t_prefill:.1f} ms ({SERVE_B * SERVE_S / t_prefill:.0f} tokens/s); "
+          f"{SERVE_STEPS} greedy decode steps at positions {SERVE_S}..{pos - 1} with a "
+          f"bf16 cache ({cache_gb:.3f} GB): {1e3 * t_step:.3f} ms a step, "
+          f"{SERVE_B / t_step:.1f} tokens/s; a step's bound {b_ms:.3f} ms ({b_by}: "
+          f"every weight and cached row read once; {100 * b_ms / (1e3 * t_step):.1f}% "
+          f"of it); peak device memory {peak_gb:.2f} GB; launches of the port's "
+          f"kernels {launches} (serving runs none, as the reference runs no Pallas "
+          f"kernel there); ids[0][:8] {out[0, :8].tolist()} | {card}", flush=True)
+    print(f"[{label} profile] one decode step at position {pos}: "
+          + profile_call(lambda: lm.decode_step(params, cache, tok, pos, cfg, opts), t_step)
+          + f" | {card}", flush=True)
+    del cache, step_logits
+
+    # An MoE prefill drops the slots past an expert's capacity, last tokens
+    # first, where a decode step of SERVE_B tokens cannot drop; the check
+    # runs at the capacity factor E / k that makes the prefill dropless too,
+    # as the reference's numeric checks do (its models/moe.py docstring).
+    cfg_check = dataclasses.replace(cfg, capacity_factor=max(
+        cfg.capacity_factor, cfg.moe_experts / max(cfg.moe_top_k, 1)))
+
+    def decode_rel(dtype, n: int = 2) -> float:
+        """rel of the decode logits at position SERVE_S (a cache of
+        ``dtype`` from a prefill of the first SERVE_S tokens) against a
+        prefill of SERVE_S + 1 tokens, on the first ``n`` prompts."""
+        o = dataclasses.replace(opts, cache_dtype=dtype)
+        want, _ = lm.prefill(params, {"tokens": tokens[:n]}, cfg_check, o)
+        _, c = lm.prefill(params, {"tokens": prompt[:n]}, cfg_check, o)
+        dl, _ = lm.decode_step(params, lm.pad_cache(c, cfg, SERVE_S + 1), nxt[:n],
+                               SERVE_S, cfg_check, o)
+        return (want - dl[:, 0]).abs().max().item() / (want.abs().max().item() + 1e-9)
+
+    rel_init = decode_rel(torch.float32)
+    condition_attention_(params, cfg)
+    rel32, rel16 = decode_rel(torch.float32), decode_rel(torch.bfloat16)
+    print(f"[{label} check] decode logits at position {SERVE_S} against prefill "
+          f"of {SERVE_S + 1} tokens (2 prompts, fp32 weights, capacity factor "
+          f"{cfg_check.capacity_factor:g}): rel {rel32:.3e} "
+          f"with an fp32 cache (< {DECODE_REL:g} required) and {rel16:.3e} with "
+          f"the bf16 cache, with the attention projections at 1/sqrt of their "
+          f"contraction width; at the reference's init (attention logits of "
+          f"order 100) rel {rel_init:.3e}, printed, not held: its near-hard-max "
+          f"attention parts two fp32 orders of the same sums further at every "
+          f"layer, and the reference's own check fails the same way at this "
+          f"depth (ROADMAP.md C.6) | {card}", flush=True)
+    assert rel32 < DECODE_REL, rel32
+
+
+def lm_serving_phase(dev, card: str, flush, counters) -> None:
+    """Phase 19: LM serving through ``prefill`` -> ``pad_cache`` ->
+    ``decode_step`` at full width: (a) smollm-360m, then ``launch/serve.py``
+    at its reduced defaults; (b) granite-8b; (c) moonshot-v1-16b-a3b at
+    MOE_LAYERS layers, first trained through ``train_lm`` with the HEAT
+    head on kernels #3 and #4, which are then checked and timed at this
+    shape (printed; the kernels line keeps phase 11's entries)."""
+    import contextlib
+    import io
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    from repro_torch.optim.optimizers import get_optimizer
+    from repro_torch.train import trainer
+    t_phase = time.perf_counter()
+
+    # ---- 19a: smollm-360m, then the serve launcher -------------------------
+    cfg = get_config("smollm-360m")
+    params = lm.init_params(0, cfg, device=dev)
+    lm_serve(dev, card, "19a", "smollm-360m", cfg, params, counters)
+    del params
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        serve.main([])
+    lines = out.getvalue().strip().splitlines()
+    assert len(lines) == 3 and lines[0].startswith("prefill: 4x16 tokens") \
+        and lines[2].startswith("generated ids[0]: "), lines
+    print(f"[19a cli] launch.serve (smollm-360m reduced, its defaults) on the card "
+          f"in {time.perf_counter() - t0:.1f} s: {' / '.join(lines)} | {card}",
+          flush=True)
+    torch.cuda.empty_cache()
+
+    # ---- 19b: granite-8b ----------------------------------------------------
+    cfg = get_config("granite-8b")
+    params = lm.init_params(0, cfg, device=dev)
+    lm_serve(dev, card, "19b", "granite-8b", cfg, params, counters)
+    del params
+    torch.cuda.empty_cache()
+
+    # ---- 19c: moonshot-v1-16b-a3b, 4 layers: train, then serve --------------
+    base = get_config("moonshot-v1-16b-a3b")
+    cfg = dataclasses.replace(base, n_layers=MOE_LAYERS, heat=dataclasses.replace(
+        base.heat, backend="pallas"))
+    opts = lm.TrainOptions(loss="heat", remat="full", attn_chunk=MOE_S)
+    tcfg = trainer.TrainerConfig(steps=MOE_STEPS, lr=LM_LR, batch_size=MOE_B,
+                                 seq_len=MOE_S, optimizer="adamw", log_every=0,
+                                 steps_per_dispatch=MOE_STEPS, fixed_batch=True)
+    init = trainer.init_lm_state(tcfg.seed, cfg, opts, get_optimizer("adamw"),
+                                 device=dev)                   # train_lm's init
+    tile0 = init.tile
+    eval_before = lm_eval_loss(init.params, cfg, opts, tile0, dev, MOE_B, MOE_S)
+    del init
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters:
+        c.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, losses = trainer.train_lm(cfg, opts, tcfg, device="cuda",
+                                     log=lambda *_: None)
+    torch.cuda.synchronize()
+    t_train = time.perf_counter() - t0
+    launches = {c.name: c.count() for c in counters}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    assert len(losses) == MOE_STEPS and all(math.isfinite(x) for x in losses), losses
+    want = {c.name: 0 for c in counters}
+    want.update(ccl_stats_shared=MOE_STEPS, ccl_bwd_shared=MOE_STEPS)
+    assert launches == want, launches
+    eval_after = lm_eval_loss(state.params, cfg, opts, tile0, dev, MOE_B, MOE_S)
+    assert eval_after < eval_before, f"MoE loss did not fall: {eval_before} -> {eval_after}"
+    n_params = sum(x.numel() for x in _leaves(state.params))
+    print(f"[19c moe train] moonshot-v1-16b-a3b cut to {MOE_LAYERS} of {base.n_layers} "
+          f"layers (d={cfg.d_model}, {cfg.moe_experts} experts top-{cfg.moe_top_k}, "
+          f"d_ff {cfg.d_ff}, vocab {cfg.vocab}, {n_params} parameters) batch {MOE_B} x "
+          f"{MOE_S}, AdamW lr {LM_LR}, remat full, HEAT head pallas (n="
+          f"{cfg.heat.num_negatives}, tile {cfg.heat.tile_size}), one fixed batch: "
+          f"{MOE_STEPS} steps, losses {[round(x, 4) for x in losses]}; fixed-batch "
+          f"loss {eval_before:.6f} -> {eval_after:.6f}; launches {launches}; "
+          f"{1e3 * t_train / MOE_STEPS:.1f} ms a step including init; peak device "
+          f"memory {peak_gb:.2f} GB | {card}", flush=True)
+    u, p, negs, _ = lm_head_inputs(state.params, cfg, opts, tile0, dev, MOE_B, MOE_S)
+    entries = shared_ccl_entries(u, p, negs, flush)
+    for kd in entries:
+        kd["launches"] = launches[kd["name"]]
+        lib = "none" if kd["library_ms"] is None else "%.4f ms" % kd["library_ms"]
+        print(f"[19c kernel] {kd['name']} on the MoE model's head inputs (T="
+              f"{u.shape[0]}, K={u.shape[1]}, n={negs.shape[0]}): same bits on two "
+              f"calls; max abs err {kd['max_abs_err']:.3e} (tol {ATOL:g} + "
+              f"{RTOL:g}*|plain|); {1e3 * kd['ms']:.1f} us kernel, "
+              f"{1e3 * kd['plain_ms']:.1f} us plain, bound {1e3 * kd['bound_ms']:.1f} "
+              f"us ({kd['bound_by']}; {bound_share(kd)}), library {lib}; "
+              f"{kd['launches']} launches in the run | {card}", flush=True)
+    params = state.params
+    del state, u, p, negs
+    torch.cuda.empty_cache()
+    lm_serve(dev, card, "19c", "moonshot-v1-16b-a3b (trained)",
+             cfg, params, counters)
+    del params
+    torch.cuda.empty_cache()
+    print(f"[19 lm serve] phase 19 took {time.perf_counter() - t_phase:.1f} s | {card}",
+          flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2333,8 +2646,10 @@ def main() -> int:
     streaming_phase(dev, card, mf_trained, tile_server, counters)
     torch.cuda.empty_cache()
     t_shard = sharding_phase(dev, card, ds, counters)
+    torch.cuda.empty_cache()
+    lm_serving_phase(dev, card, flush, counters)
 
-    print(f"[total] all 18 phases in {time.perf_counter() - t_start:.1f} s (phase 18: "
+    print(f"[total] all 19 phases in {time.perf_counter() - t_start:.1f} s (phase 18: "
           f"{t_shard:.1f} s) | {card}", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -21,6 +21,13 @@ reference's ``jax.tree_util`` paths of ``LMTrainState``::
     opt_state/count                           () int32
     tile/tile_ids, tile/step                  the id-only vocab tile, if any
     step                                      ()
+
+Both LM families carry over by these names: an MoE layer's leaves are
+``params/blocks/moe/{router,w_gate,w_up,w_down}``, and an interleaved MoE
+stack's ``params/blocks/dense/...`` and ``params/blocks/moe_blk/...``.  A
+decode cache (``models/lm.py::DecodeCache``) is named as the reference's
+flattens: ``kv/k``, ``kv/v``, or for the interleaved MoE layout
+``kv/0/{k,v}`` (the dense layers) and ``kv/1/{k,v}`` (the MoE layers).
 """
 from __future__ import annotations
 
@@ -30,6 +37,8 @@ import torch
 from repro_torch.core.aggregation import AccumulatorState, AggregatorParams
 from repro_torch.core.mf import MFParams, MFState
 from repro_torch.core.samplers import TileState
+from repro_torch.models.layers import KVCache
+from repro_torch.models.lm import DecodeCache
 from repro_torch.models.params import tree_from_items
 from repro_torch.optim.optimizers import AdamMoments, OptState
 from repro_torch.optim.quantization import QuantizedTable
@@ -119,3 +128,42 @@ def lm_state_to_numpy(state: LMTrainState) -> dict:
     """The numpy leaf dict of a port LM state (inverse of
     :func:`lm_state_from_numpy`)."""
     return {name: leaf_to_numpy(leaf) for name, leaf in named_leaves(state)}
+
+
+def _tensor_from_numpy(arr, device) -> torch.Tensor:
+    """``arr`` as a tensor on ``device``; a bfloat16 array (ml_dtypes, as
+    JAX hands it out) keeps its bits."""
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":
+        bits = torch.as_tensor(arr.view(np.int16))
+        return bits.view(torch.bfloat16).to(device)
+    return torch.as_tensor(arr, device=device)
+
+
+def decode_cache_from_numpy(tree: dict, device="cpu") -> DecodeCache:
+    """Build a port :class:`~repro_torch.models.lm.DecodeCache` on
+    ``device`` from the numpy leaf dict of the reference's cache (the names
+    of the module docstring; bfloat16 arrays keep their bits)."""
+    def kv(prefix):
+        return KVCache(_tensor_from_numpy(tree[f"{prefix}/k"], device),
+                       _tensor_from_numpy(tree[f"{prefix}/v"], device))
+
+    if "kv/0/k" in tree:
+        return DecodeCache(kv=(kv("kv/0"), kv("kv/1")))
+    return DecodeCache(kv=kv("kv"))
+
+
+def decode_cache_to_numpy(cache: DecodeCache) -> dict:
+    """The numpy leaf dict of a port decode cache (inverse of
+    :func:`decode_cache_from_numpy`); bfloat16 leaves come out as float32,
+    which holds them exactly."""
+    def arr(t):
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    members = cache.kv if isinstance(cache.kv[0], KVCache) else (cache.kv,)
+    out = {}
+    for i, m in enumerate(members):
+        prefix = f"kv/{i}" if len(members) > 1 else "kv"
+        out[f"{prefix}/k"], out[f"{prefix}/v"] = arr(m.k), arr(m.v)
+    return out

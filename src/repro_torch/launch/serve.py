@@ -1,11 +1,25 @@
-"""Serving launcher of the port: MF top-k recommendation serving
-(``src/repro/launch/serve.py --mf``).
+"""Serving launcher of the port (``src/repro/launch/serve.py``): batched LM
+decoding (``prefill`` -> ``decode_step``*) or, with ``--mf``, MF top-k
+recommendation serving.
 
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \\
+        --device cpu                              # LM, reduced, plain path
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b \\
+        --prompt-len 16 --decode-steps 8 --batch 4      # LM on the card
     PYTHONPATH=src python -m repro_torch.launch.serve --mf --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --mf --pruner tile \\
         --expand-tiles 4 --max-batch 32 --max-wait-ms 2      # on the card
 
-Trains briefly, then serves concurrent single-user requests through a
+Without ``--mf`` it serves the LM named by ``--arch`` (a dense or MoE
+architecture) at its reduced size, as the reference does (its ``--reduced``
+cannot be switched off): random parameters from key 0, a random prompt of
+``--batch`` x ``--prompt-len`` tokens from key 1, one ``prefill``, the cache
+padded to the prompt plus ``--decode-steps`` positions, then greedy
+``decode_step``s whose tokens stay on the device until one readback at the
+end.  It prints the reference's three lines: prefill ms, decode ms per
+token and the generated ids of the first sequence.
+
+With ``--mf`` it trains briefly, then serves concurrent single-user requests through a
 :class:`~repro_torch.launch.server.BatchingRecommender` with each pruner asked
 for (``--pruner both``, the default, runs the exact and the tile pruner in
 turn), and ends as the reference does: the streaming service, warm-started
@@ -127,12 +141,68 @@ def serve_mf(args, device) -> None:
     server.stop()
 
 
+def serve_lm(args, device) -> None:
+    """Prefill a random prompt and decode greedily; print the prefill time,
+    the decode time per token and the first sequence's ids."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import mf
+    from repro_torch.models import lm
+
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    opts = lm.TrainOptions(loss="softmax", remat="none",
+                           attn_chunk=min(1024, args.prompt_len))
+    params = lm.init_params(0, cfg, device=device)
+    max_len = args.prompt_len + args.decode_steps
+    batch = {"tokens": torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),
+                                     generator=mf.generator(1, device),
+                                     device=device)}
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    sync()
+    t0 = time.perf_counter()
+    logits, cache = lm.prefill(params, batch, cfg, opts, device=device)
+    cache = lm.pad_cache(cache, cfg, max_len)
+    sync()
+    t_prefill = time.perf_counter() - t0
+    print(f"prefill: {args.batch}x{args.prompt_len} tokens in "
+          f"{1e3 * t_prefill:.1f} ms")
+
+    tok = torch.argmax(logits, -1)[:, None]
+    generated = [tok]
+    t0 = time.perf_counter()
+    for i in range(args.decode_steps):
+        logits_t, cache = lm.decode_step(params, cache, tok,
+                                         args.prompt_len + i, cfg, opts,
+                                         device=device)
+        tok = torch.argmax(logits_t[:, 0], -1)[:, None]
+        generated.append(tok)
+    out = torch.cat(generated, dim=1).cpu()      # the one readback
+    dt = (time.perf_counter() - t0) / max(args.decode_steps, 1)
+    print(f"decode: {1e3 * dt:.1f} ms/token/batch "
+          f"({1e6 * dt / args.batch:.0f} us/token/sequence)")
+    print(f"generated ids[0]: {out[0].tolist()}")
+
+
 def main(argv=None):
-    """CLI entry: MF top-k serving with ``--mf``."""
+    """CLI entry: LM decoding, or MF top-k serving with ``--mf``."""
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="smollm-360m")
+    ap.add_argument("--reduced", action="store_true", default=True,
+                    help="the reduced config (always on, as in the "
+                         "reference; chip_smoke.py drives full widths "
+                         "through the library)")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--decode-steps", type=int, default=8)
     ap.add_argument("--mf", action="store_true",
-                    help="serve MF top-k recommendations (LM decoding waits "
-                         "for ROADMAP.md A.6)")
+                    help="serve MF top-k recommendations instead of LM decode")
     ap.add_argument("--topk", type=int, default=10)
     ap.add_argument("--item-chunk", type=int, default=512,
                     help="catalog chunk of the exact pruner's running top-k")
@@ -156,16 +226,20 @@ def main(argv=None):
                     help="cuda (default) serves on the card; cpu runs the "
                          "plain path")
     args = ap.parse_args(argv)
-    if not args.mf:
-        raise NotImplementedError(
-            "LM serving (prefill/decode_step with KV caches) is not ported "
-            "yet: it waits for ROADMAP.md A.6; pass --mf for MF serving")
     from repro_torch.core.mf import resolve_device
     try:
         device = resolve_device(args.device)
     except RuntimeError as e:
         ap.error(str(e))
-    serve_mf(args, device)
+    if args.mf:
+        serve_mf(args, device)
+        return
+    from repro_torch.configs import get_config
+    try:
+        get_config(args.arch)
+    except ValueError as e:
+        ap.error(str(e))
+    serve_lm(args, device)
 
 
 if __name__ == "__main__":

@@ -22,9 +22,10 @@ meshes shard the MF model).
         --batch 1024 --backend pallas --update-impl pallas --mesh host \\
         --mesh-data 2 --dist-backend gloo   # 2 ranks sharing one card
 
-Without ``--mf`` it trains the LM named by ``--arch`` (the dense family;
-default smollm-360m) with the HEAT vocab head (``--loss heat``, whose engine
-``--backend``/``--sampler`` select) or the full-softmax head.  Runs on the
+Without ``--mf`` it trains the LM named by ``--arch`` (a dense or MoE
+architecture; default smollm-360m) with the HEAT vocab head (``--loss
+heat``, whose engine ``--backend``/``--sampler`` select) or the
+full-softmax head.  Runs on the
 card unless ``--device cpu`` is given; with no CUDA device it exits with an
 error instead of falling back.
 

@@ -4,8 +4,8 @@ config means the same model in both packages.
 
 One :class:`ArchConfig` per architecture lives in ``configs/<id>.py`` with
 the published numbers; ``reduced()`` gives the tiny same-family config the
-CPU tests run.  :class:`ShapeConfig` names the four run shapes.  Only the
-dense family trains in the port so far; the fields of the other families are
+CPU tests run.  :class:`ShapeConfig` names the four run shapes.  The port
+runs the dense and MoE families so far; the fields of the other families are
 kept so the two packages' configs stay field for field the same.
 """
 from __future__ import annotations

@@ -24,7 +24,13 @@ from repro_torch.models.params import tree_items, tree_map
 @dataclasses.dataclass(frozen=True)
 class Optimizer:
     """Named ``(init, update)`` bundle: ``init(params) -> OptState`` and
-    ``update(grads, state, params, lr) -> (new_params, new_state)``."""
+    ``update(grads, state, params, lr) -> (new_params, new_state)``.
+    ``update`` writes the new values into the parameter and moment tensors
+    it is given and returns them (the reference's jitted step donates the
+    state's buffers): each leaf's new value is computed out of place, as
+    the reference's arithmetic orders it, then copied over the old one, so
+    the bits are the same and one leaf's temporaries are the only extra
+    memory (an LM's old and new states are never held together)."""
 
     name: str
     init: Callable[[Any], Any]
@@ -61,12 +67,13 @@ def make_sgd(momentum: float = 0.0) -> Optimizer:
 
     def update(grads, state, params, lr):
         if use_m:
-            new_m = tree_map(lambda m, g: momentum * m + g.to(m.dtype),
+            new_m = tree_map(lambda m, g: m.copy_(momentum * m + g.to(m.dtype)),
                              state.moments, grads)
-            new_p = tree_map(lambda p, m: (p - lr * m).to(p.dtype), params,
-                             new_m)
+            new_p = tree_map(lambda p, m: p.copy_((p - lr * m).to(p.dtype)),
+                             params, new_m)
             return new_p, OptState(new_m, state.count + 1)
-        new_p = tree_map(lambda p, g: (p - lr * g).to(p.dtype), params, grads)
+        new_p = tree_map(lambda p, g: p.copy_((p - lr * g).to(p.dtype)),
+                         params, grads)
         return new_p, OptState(None, state.count + 1)
 
     return Optimizer("sgd", init, update)
@@ -99,7 +106,8 @@ def make_adamw(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
             step = (m / bc1) / (torch.sqrt(v / bc2) + eps)
             if weight_decay:
                 step = step + weight_decay * p.float()
-            return (p - lr * step).to(p.dtype), AdamMoments(m, v)
+            p.copy_((p - lr * step).to(p.dtype))
+            return p, AdamMoments(mom.mu.copy_(m), mom.nu.copy_(v))
 
         out = tree_map(upd, params, grads, state.moments)
         return (tree_map(lambda t: t[0], out),

@@ -1,6 +1,7 @@
 """The training loops of the port: the MF half of
 ``src/repro/train/trainer.py`` (``train_mf``) and its LM half
-(``train_lm``: the dense LM with the HEAT vocab head or the softmax head).
+(``train_lm``: a dense or MoE LM with the HEAT vocab head or the softmax
+head).
 
 The loop runs in K-step windows: an :class:`EpochExecutor` runs K steps as a
 Python loop, each drawing its batch on the device from (seed, step), and

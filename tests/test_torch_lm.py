@@ -157,7 +157,7 @@ def test_param_tree_is_the_reference_tree(mlp_kind):
     tc = dataclasses.replace(tc, mlp_kind=mlp_kind)
     want = {n: a.shape for n, a in _tree(jlm.init_params(
         jax.random.PRNGKey(0), jc)).items()}
-    params = lm.init_params(7, tc)
+    params = lm.init_params(7, tc, device="cpu")
     got = {n: tuple(a.shape) for n, a in tree_items(params)}
     assert got == want
     assert count_params(params) == count_params(lm.model_defs(tc)) \
@@ -166,7 +166,7 @@ def test_param_tree_is_the_reference_tree(mlp_kind):
     assert abs(params["embed"].std().item() - 0.02) < 0.002
     wq = params["blocks"]["attn"]["wq"]          # fan-in: the second-to-last dim,
     assert abs(wq.std().item() * wq.shape[-2] ** 0.5 - 1.0) < 0.1  # as in the reference
-    again = lm.init_params(7, tc)
+    again = lm.init_params(7, tc, device="cpu")
     assert all(torch.equal(a, again_a) for (_, a), (_, again_a)
                in zip(tree_items(params), tree_items(again)))
 
@@ -235,8 +235,8 @@ def test_attn_block_matches_reference():
     want, _ = jlayers.attn_apply(p, x, jcos, jsin, jc, attn_chunk=8)
     cos, sin = layers.rope_cos_sin(torch.as_tensor(pos), tc.head_dim,
                                    tc.rope_theta)
-    got = layers.attn_apply({k: torch.as_tensor(v) for k, v in p.items()},
-                            torch.as_tensor(x), cos, sin, tc, attn_chunk=8)
+    got, _ = layers.attn_apply({k: torch.as_tensor(v) for k, v in p.items()},
+                               torch.as_tensor(x), cos, sin, tc, attn_chunk=8)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
 
 
