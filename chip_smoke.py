@@ -20,7 +20,9 @@ the divergence guard and the chaos harness); and sharded MF training over
 shard-aware checkpoints, the CLI's ``--mesh-data``) through kernels #1, #2
 and #6 on every rank; and LM serving (prefill, KV-cache decode, the serve
 CLI) of smollm-360m, granite-8b and a 4-layer moonshot-v1-16b-a3b, the MoE
-model first trained with the HEAT head on kernels #3 and #4.
+model first trained with the HEAT head on kernels #3 and #4; and the SSM,
+hybrid and VLM families (mamba2-370m, zamba2-2.7b, qwen2-vl-2b at full width
+and depth) trained through kernels #3 and #4, then served.
 Phases, one line each (a few print more):
 
   1. the card (name and power limit from nvidia-smi);
@@ -194,7 +196,23 @@ Phases, one line each (a few print more):
      and #4 launched once a step and nothing else, peak memory), #3 and #4
      against their plain versions on the trained model's head inputs (T =
      2,044, K = 2,048, n = 128: errors, µs, bounds), then the serving run on
-     the trained weights; and the phase's seconds.
+     the trained weights; and the phase's seconds;
+ 20. the SSM, hybrid and VLM families at full width and depth (fp32
+     weights, AdamW at lr 1e-3, ``remat="full"``, the HEAT head on
+     ``pallas``, one fixed batch): (a) mamba2-370m (48 Mamba2 layers,
+     d=1,024, state 128) for 16 steps at 8 x 1,024; (b) zamba2-2.7b (54
+     Mamba2 layers in 9 groups, each followed by the one shared attention
+     block and MLP) for 4 steps at 2 x 512; (c) qwen2-vl-2b (28 M-RoPE
+     layers) for 8 steps at 4 x 512 with 256 patch rows a sequence from
+     ``lm_batch(extras=)``: finite losses, the fixed-batch loss falling,
+     kernels #3 and #4 launched once a step and nothing else, peak memory;
+     #3 and #4 against their plain versions on each trained head's inputs
+     (errors, µs, bounds, ``torch.matmul`` for ``un``; these entries join
+     the kernels line); then phase 19's serving run on the trained weights
+     (the VLM's prompts start with 256 random patch rows; the Mamba cache
+     stays fp32 under the bf16 ``cache_dtype``), its check held with no
+     conditioning for mamba2 and with the attention conditioned for the
+     other two; and the seconds of each model and of the phase.
 
 Then it prints the total seconds, the kernels' JSON line, the card line, and
 as its last line ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
@@ -389,20 +407,22 @@ def dequant_summary(kd: dict) -> str:
             f"partial yardstick)")
 
 
-def lm_eval_loss(params, cfg, opts, tile, dev, b: int = LM_B, s: int = LM_S) -> float:
-    """The HEAT loss on the fixed batch phase 10 (or 19c) trains on
-    (``lm_batch`` seed 0, step 0, b x s) with the fixed key 1000 and a fixed
-    tile, without gradients."""
+def lm_eval_loss(params, cfg, opts, tile, dev, b: int = LM_B, s: int = LM_S,
+                 extras=None) -> float:
+    """The HEAT loss on the fixed batch phase 10 (or 19c, 20) trains on
+    (``lm_batch`` seed 0, step 0, b x s, with ``extras``: a VLM's patches)
+    with the fixed key 1000 and a fixed tile, without gradients."""
     import torch
     from repro_torch.data import pipeline
     from repro_torch.models import lm
-    batch = pipeline.lm_batch(0, b, s, cfg.vocab, seed=0, device=dev)
+    batch = pipeline.lm_batch(0, b, s, cfg.vocab, seed=0, device=dev, extras=extras)
     with torch.no_grad():
         loss, _ = lm.forward_train(params, batch, cfg, opts, 1000, tile)
     return loss.item()
 
 
-def lm_head_inputs(params, cfg, opts, tile, dev, b: int = LM_B, s: int = LM_S):
+def lm_head_inputs(params, cfg, opts, tile, dev, b: int = LM_B, s: int = LM_S,
+                   extras=None):
     """The HEAT head's inputs for :func:`lm_eval_loss`'s batch and key:
     hidden rows u (T, d), positives p (T, d), the n shared negatives (n, d),
     and the batch."""
@@ -410,7 +430,7 @@ def lm_head_inputs(params, cfg, opts, tile, dev, b: int = LM_B, s: int = LM_S):
     from repro_torch.core import mf
     from repro_torch.data import pipeline
     from repro_torch.models import lm
-    batch = pipeline.lm_batch(0, b, s, cfg.vocab, seed=0, device=dev)
+    batch = pipeline.lm_batch(0, b, s, cfg.vocab, seed=0, device=dev, extras=extras)
     table = params["out_embed"]
     with torch.no_grad():
         h, _ = lm._run_stack(params, lm.embed_inputs(params, batch, cfg), cfg, opts)
@@ -643,7 +663,7 @@ def lm_phases(dev, card: str, flush, counters) -> list:
         lp = lm._layers(state.params["blocks"], cfg.n_layers)[0]
         x = layers.rms_norm(lm.embed_inputs(state.params, batch, cfg), lp["ln1"],
                             cfg.norm_eps)
-        cos, sin = layers.rope_cos_sin(lm._positions(LM_B, LM_S, dev),
+        cos, sin = layers.rope_cos_sin(lm._positions(cfg, LM_B, LM_S, dev),
                                        cfg.head_dim, cfg.rope_theta)
         qm = layers.apply_rope(torch.einsum("bsd,dhk->bshk", x, lp["attn"]["wq"]),
                                cos, sin)
@@ -2037,18 +2057,29 @@ def profile_call(fn, wall_s: float, top_n: int = 5) -> str:
             f"({100 * busy_us / (1e6 * wall_s):.1f}%); top: {names}")
 
 
-def decode_bound(params, cfg, rows: int, cache_bytes_per_row: int):
+def decode_bound(params, cfg, rows: int, cache_bytes_per_row: int,
+                 state_elems: int = 0):
     """Least time (ms) of one decode step of SERVE_B tokens with ``rows``
     cached positions: every weight read once (of the input embedding only
-    the SERVE_B rows), each cached K/V row read once, the new rows and the
-    fp32 logits written; and its operations, every product at the fp32 rate
-    (an MoE step runs each expert on its capacity of SERVE_B slots, so its
-    products are 2 x SERVE_B x every weight too) plus the attention's."""
+    the SERVE_B rows), each cached K/V row read once, a Mamba cache's
+    ``state_elems`` fp32 elements (state and conv window) read and written
+    once, the new rows and the fp32 logits written; and its operations,
+    every product at the fp32 rate (an MoE step runs each expert on its
+    capacity of SERVE_B slots, so its products are 2 x SERVE_B x every
+    weight too; a hybrid applies its shared block G times) plus the
+    attention's over the layers that attend and the recurrence's 6
+    operations an element of the Mamba cache."""
     n_weights = sum(x.numel() for x in _leaves(params)) - cfg.vocab * cfg.d_model
-    nbytes = (4 * n_weights + 4 * SERVE_B * cfg.d_model
+    n_applied, attn_layers = n_weights, cfg.n_layers
+    if cfg.family == "hybrid":
+        attn_layers = cfg.n_layers // cfg.shared_attn_every
+        n_applied += (attn_layers - 1) * sum(x.numel() for x in _leaves(params["shared"]))
+    elif cfg.family == "ssm":
+        attn_layers = 0
+    nbytes = (4 * n_weights + 4 * SERVE_B * cfg.d_model + 8 * state_elems
               + cache_bytes_per_row * (rows + 1) + 4 * SERVE_B * cfg.vocab)
-    flops = (2 * SERVE_B * n_weights
-             + 4 * SERVE_B * cfg.n_heads * cfg.head_dim * rows * cfg.n_layers)
+    flops = (2 * SERVE_B * n_applied + 6 * state_elems
+             + 4 * SERVE_B * cfg.n_heads * cfg.head_dim * rows * attn_layers)
     return bound(nbytes, flops)
 
 
@@ -2073,13 +2104,24 @@ def condition_attention_(tree: dict, cfg) -> None:
             condition_attention_(v, cfg)
 
 
+def kv_members(cache) -> list:
+    """The K/V caches of a decode cache: its ``kv`` (one, or the
+    interleaved MoE pair) and a hybrid's ``shared_kv``."""
+    from repro_torch.models import lm
+    kv = [] if cache.kv is None else (
+        [cache.kv] if isinstance(cache.kv, lm.KVCache) else list(cache.kv))
+    return kv + ([] if cache.shared_kv is None else [cache.shared_kv])
+
+
 def lm_serve(dev, card: str, label: str, name: str, cfg, params, counters) -> None:
-    """Phase 19's serving run of one model: prefill SERVE_B x SERVE_S
-    random tokens, pad the cache, SERVE_STEPS greedy decode steps with the
-    bf16 cache (tokens kept on the card, one readback), one profiled step,
-    and the decode-after-prefill check (the reference's ``rel < 2e-3``)
-    held with the attention projections conditioned in place
-    (:func:`condition_attention_`), the reference init's rel printed."""
+    """Phase 19's (and 20's) serving run of one model: prefill SERVE_B x
+    SERVE_S random tokens (a VLM's first num_patches positions random patch
+    rows), pad the cache, SERVE_STEPS greedy decode
+    steps with the bf16 K/V cache (a Mamba cache stays fp32; tokens kept on
+    the card, one readback), one profiled step, and the decode-after-prefill
+    check (the reference's ``rel < 2e-3``) held with the attention
+    projections conditioned in place (:func:`condition_attention_`; a model
+    without attention as it is), the reference init's rel printed."""
     import torch
     from repro_torch.core import mf
     from repro_torch.models import lm
@@ -2087,6 +2129,12 @@ def lm_serve(dev, card: str, label: str, name: str, cfg, params, counters) -> No
     tokens = torch.randint(0, cfg.vocab, (SERVE_B, SERVE_S + 1),
                            generator=mf.generator(19, dev), device=dev)
     prompt, nxt = tokens[:, :SERVE_S], tokens[:, SERVE_S:]
+    extra = {}
+    patches = cfg.family == "vlm"
+    if patches:
+        extra["patches"] = 0.1 * torch.randn(
+            (SERVE_B, cfg.num_patches, cfg.d_model), generator=mf.generator(20, dev),
+            device=dev)
     _, warm = lm.prefill(params, {"tokens": prompt[:, :16]}, cfg, opts)   # warm-up
     lm.decode_step(params, lm.pad_cache(warm, cfg, 17), nxt, 16, cfg, opts)
     del warm
@@ -2096,13 +2144,15 @@ def lm_serve(dev, card: str, label: str, name: str, cfg, params, counters) -> No
     for c in counters:
         c.reset()
     t0 = time.perf_counter()
-    logits, cache = lm.prefill(params, {"tokens": prompt}, cfg, opts)
+    logits, cache = lm.prefill(params, {"tokens": prompt, **extra}, cfg, opts)
     torch.cuda.synchronize()
     t_prefill = time.perf_counter() - t0
     cache = lm.pad_cache(cache, cfg, SERVE_S + SERVE_STEPS + 1)   # +1: the profiled step
-    members = (cache.kv,) if isinstance(cache.kv, lm.KVCache) else cache.kv
-    kv = members[0]
-    cache_gb = sum(2 * m.k.numel() * m.k.element_size() for m in members) / 1e9
+    members = kv_members(cache)
+    mamba = () if cache.mamba is None else tuple(cache.mamba)
+    state_elems = sum(t.numel() for t in mamba)
+    cache_gb = (sum(2 * m.k.numel() * m.k.element_size() for m in members)
+                + sum(t.numel() * t.element_size() for t in mamba)) / 1e9
     row_bytes = sum(2 * m.k[:, :, 0].numel() * m.k.element_size() for m in members)
     tok = logits.argmax(-1)[:, None]
     generated = [tok]
@@ -2116,20 +2166,25 @@ def lm_serve(dev, card: str, label: str, name: str, cfg, params, counters) -> No
     t_step = (time.perf_counter() - t0) / SERVE_STEPS
     launches = {c.name: c.count() for c in counters}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    assert kv.k.dtype == torch.bfloat16 and kv.k.shape[2] == SERVE_S + SERVE_STEPS + 1
+    for kv in members:
+        assert kv.k.dtype == torch.bfloat16 and kv.k.shape[2] == SERVE_S + SERVE_STEPS + 1
+    assert all(t.dtype == torch.float32 for t in mamba)       # as the reference keeps it
     assert all(v == 0 for v in launches.values()), launches
     assert out.shape == (SERVE_B, SERVE_STEPS + 1)
     assert 0 <= int(out.min()) and int(out.max()) < cfg.vocab
     assert bool(torch.isfinite(step_logits).all()) and bool(torch.isfinite(logits).all())
     pos = SERVE_S + SERVE_STEPS
-    b_ms, b_by = decode_bound(params, cfg, pos, row_bytes)
+    b_ms, b_by = decode_bound(params, cfg, pos, row_bytes, state_elems)
     n_params = sum(x.numel() for x in _leaves(params))
-    print(f"[{label} serve] {name} ({cfg.n_layers} layers, d={cfg.d_model}, "
+    kinds = ", ".join(k for k, on in (("bf16 K/V", members), ("fp32 Mamba state", mamba))
+                      if on)
+    print(f"[{label} serve] {name} ({cfg.family}, {cfg.n_layers} layers, d={cfg.d_model}, "
           f"{cfg.n_heads}/{cfg.n_kv_heads} heads, vocab {cfg.vocab}, {n_params} "
-          f"parameters, fp32): prefill {SERVE_B} x {SERVE_S} tokens in "
+          f"parameters, fp32): prefill {SERVE_B} x {SERVE_S} tokens"
+          f"{' (the first %d patch rows)' % cfg.num_patches if patches else ''} in "
           f"{1e3 * t_prefill:.1f} ms ({SERVE_B * SERVE_S / t_prefill:.0f} tokens/s); "
           f"{SERVE_STEPS} greedy decode steps at positions {SERVE_S}..{pos - 1} with a "
-          f"bf16 cache ({cache_gb:.3f} GB): {1e3 * t_step:.3f} ms a step, "
+          f"cache of {kinds} ({cache_gb:.3f} GB): {1e3 * t_step:.3f} ms a step, "
           f"{SERVE_B / t_step:.1f} tokens/s; a step's bound {b_ms:.3f} ms ({b_by}: "
           f"every weight and cached row read once; {100 * b_ms / (1e3 * t_step):.1f}% "
           f"of it); peak device memory {peak_gb:.2f} GB; launches of the port's "
@@ -2152,12 +2207,23 @@ def lm_serve(dev, card: str, label: str, name: str, cfg, params, counters) -> No
         ``dtype`` from a prefill of the first SERVE_S tokens) against a
         prefill of SERVE_S + 1 tokens, on the first ``n`` prompts."""
         o = dataclasses.replace(opts, cache_dtype=dtype)
-        want, _ = lm.prefill(params, {"tokens": tokens[:n]}, cfg_check, o)
-        _, c = lm.prefill(params, {"tokens": prompt[:n]}, cfg_check, o)
+        ex = {k: v[:n] for k, v in extra.items()}
+        want, _ = lm.prefill(params, {"tokens": tokens[:n], **ex}, cfg_check, o)
+        _, c = lm.prefill(params, {"tokens": prompt[:n], **ex}, cfg_check, o)
         dl, _ = lm.decode_step(params, lm.pad_cache(c, cfg, SERVE_S + 1), nxt[:n],
                                SERVE_S, cfg_check, o)
         return (want - dl[:, 0]).abs().max().item() / (want.abs().max().item() + 1e-9)
 
+    if cfg.family == "ssm":                # no attention: held as it is
+        rel32, rel16 = decode_rel(torch.float32), decode_rel(torch.bfloat16)
+        print(f"[{label} check] decode logits at position {SERVE_S} against prefill "
+              f"of {SERVE_S + 1} tokens (2 prompts, fp32 weights, no attention, no "
+              f"conditioning): rel {rel32:.3e} with an fp32 Mamba cache (< "
+              f"{DECODE_REL:g} required); {rel16:.3e} with the serving options' "
+              f"bf16 cache_dtype, which the Mamba cache does not take | {card}",
+              flush=True)
+        assert rel32 < DECODE_REL and rel16 < DECODE_REL, (rel32, rel16)
+        return
     rel_init = decode_rel(torch.float32)
     condition_attention_(params, cfg)
     rel32, rel16 = decode_rel(torch.float32), decode_rel(torch.bfloat16)
@@ -2278,6 +2344,104 @@ def lm_serving_phase(dev, card: str, flush, counters) -> None:
     torch.cuda.empty_cache()
     print(f"[19 lm serve] phase 19 took {time.perf_counter() - t_phase:.1f} s | {card}",
           flush=True)
+
+
+#: phase 20: the SSM, hybrid and VLM families at full width and depth, as
+#: (label, architecture, AdamW steps, batch, sequence) of the training run on
+#: one fixed batch; each is then served as phase 19 serves.
+FAMILY_RUNS = (("20a", "mamba2-370m", 16, 8, 1024),
+               ("20b", "zamba2-2.7b", 4, 2, 512),
+               ("20c", "qwen2-vl-2b", 8, 4, 512))
+
+
+def families_phase(dev, card: str, flush, counters) -> list:
+    """Phase 20: mamba2-370m (``ssm``), zamba2-2.7b (``hybrid``) and
+    qwen2-vl-2b (``vlm``, with the batch's 256 patch rows from
+    ``lm_batch(extras=)``) at full width and depth: ``train_lm`` with the
+    HEAT head on ``pallas`` (AdamW, ``remat="full"``, one fixed batch:
+    finite losses, the fixed-batch loss falling, kernels #3 and #4 launched
+    once a step and nothing else, peak memory), #3 and #4 against their
+    plain versions on the trained head's inputs, then the serving run of
+    phase 19 on the trained weights.  Returns the kernels line's entries
+    of #3 and #4 at the three head shapes."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.optim.optimizers import get_optimizer
+    from repro_torch.train import trainer
+    t_phase = time.perf_counter()
+    entries = []
+    for label, arch, steps, b, s in FAMILY_RUNS:
+        t_run = time.perf_counter()
+        base = get_config(arch)
+        cfg = dataclasses.replace(base, heat=dataclasses.replace(base.heat,
+                                                                 backend="pallas"))
+        extras = ({"patches": ((b, cfg.num_patches, cfg.d_model), torch.float32)}
+                  if cfg.family == "vlm" else None)
+        opts = lm.TrainOptions(loss="heat", remat="full", attn_chunk=s)
+        tcfg = trainer.TrainerConfig(steps=steps, lr=LM_LR, batch_size=b, seq_len=s,
+                                     optimizer="adamw", log_every=0,
+                                     steps_per_dispatch=steps, fixed_batch=True)
+        init = trainer.init_lm_state(tcfg.seed, cfg, opts, get_optimizer("adamw"),
+                                     device=dev)                  # train_lm's init
+        tile0 = init.tile
+        eval_before = lm_eval_loss(init.params, cfg, opts, tile0, dev, b, s, extras)
+        del init
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters:
+            c.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, losses = trainer.train_lm(cfg, opts, tcfg, extras, device=dev,
+                                         log=lambda *_: None)
+        torch.cuda.synchronize()
+        t_train = time.perf_counter() - t0
+        launches = {c.name: c.count() for c in counters}
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        assert len(losses) == steps and all(math.isfinite(x) for x in losses), losses
+        want = {c.name: 0 for c in counters}
+        want.update(ccl_stats_shared=steps, ccl_bwd_shared=steps)
+        assert launches == want, launches
+        eval_after = lm_eval_loss(state.params, cfg, opts, tile0, dev, b, s, extras)
+        assert eval_after < eval_before, \
+            f"{arch}: loss did not fall: {eval_before} -> {eval_after}"
+        n_params = sum(x.numel() for x in _leaves(state.params))
+        print(f"[{label} train] {arch} ({cfg.family}, {cfg.n_layers} layers, d="
+              f"{cfg.d_model}, vocab {cfg.vocab}, {n_params} parameters"
+              f"{', %d patch rows a sequence' % cfg.num_patches if extras else ''}) "
+              f"batch {b} x {s}, AdamW lr {LM_LR}, remat full, HEAT head pallas (n="
+              f"{cfg.heat.num_negatives}, tile {cfg.heat.tile_size}), one fixed batch: "
+              f"{steps} steps, losses {[round(x, 4) for x in losses]}; fixed-batch "
+              f"loss {eval_before:.6f} -> {eval_after:.6f}; launches {launches}; "
+              f"{1e3 * t_train / steps:.1f} ms a step including init; peak device "
+              f"memory {peak_gb:.2f} GB | {card}", flush=True)
+        u, p, negs, _ = lm_head_inputs(state.params, cfg, opts, tile0, dev, b, s, extras)
+        for kd in shared_ccl_entries(u, p, negs, flush):
+            kd.update(launches=launches[kd["name"]], phase=label,
+                      shape=f"T={u.shape[0]}, K={u.shape[1]}, n={negs.shape[0]}")
+            print(f"[{label} kernel] {kd['name']} on {arch}'s head inputs "
+                  f"({kd['shape']}): same bits on two calls; max abs err "
+                  f"{kd['max_abs_err']:.3e} (tol {ATOL:g} + {RTOL:g}*|plain|); "
+                  f"{1e3 * kd['ms']:.1f} us kernel, {1e3 * kd['plain_ms']:.1f} us "
+                  f"plain, bound {1e3 * kd['bound_ms']:.1f} us ({kd['bound_by']}; "
+                  f"{bound_share(kd)}), library "
+                  + ("none" if kd["library_ms"] is None else
+                     "%.1f us (torch.matmul(u, negs.T) for un alone)"
+                     % (1e3 * kd["library_ms"]))
+                  + f"; {kd['launches']} launches in the run | {card}", flush=True)
+            entries.append(kd)
+        params = state.params
+        del state, u, p, negs
+        torch.cuda.empty_cache()
+        lm_serve(dev, card, label, f"{arch} (trained)", cfg, params, counters)
+        del params
+        torch.cuda.empty_cache()
+        print(f"[{label} time] {arch}: {time.perf_counter() - t_run:.1f} s | {card}",
+              flush=True)
+    print(f"[20 families] phase 20 took {time.perf_counter() - t_phase:.1f} s | {card}",
+          flush=True)
+    return entries
 
 
 def main() -> int:
@@ -2648,8 +2812,10 @@ def main() -> int:
     t_shard = sharding_phase(dev, card, ds, counters)
     torch.cuda.empty_cache()
     lm_serving_phase(dev, card, flush, counters)
+    torch.cuda.empty_cache()
+    kernels += families_phase(dev, card, flush, counters)
 
-    print(f"[total] all 19 phases in {time.perf_counter() - t_start:.1f} s (phase 18: "
+    print(f"[total] all 20 phases in {time.perf_counter() - t_start:.1f} s (phase 18: "
           f"{t_shard:.1f} s) | {card}", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)

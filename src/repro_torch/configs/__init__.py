@@ -2,10 +2,10 @@
 LM architecture registry.
 
 ``get_config(name)`` accepts the reference's architecture ids (hyphenated)
-or module names, as ``src/repro/configs/__init__.py`` does.  The dense and
-MoE architectures are registered (copies of the reference's configs, field
-for field); the SSM, hybrid, audio and VLM ones raise, naming the slice of
-the port that brings their family.
+or module names, as ``src/repro/configs/__init__.py`` does.  The dense, MoE,
+SSM, hybrid and VLM architectures are registered (copies of the reference's
+configs, field for field); the audio one raises, naming the slice of the
+port that brings its family.
 """
 from __future__ import annotations
 
@@ -15,18 +15,18 @@ import importlib
 ARCH_MODULES = {
     "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b",
     "moonshot-v1-16b-a3b": "moonshot_v1_16b_a3b",
+    "mamba2-370m": "mamba2_370m",
+    "zamba2-2.7b": "zamba2_2p7b",
     "minitron-4b": "minitron_4b",
     "granite-8b": "granite_8b",
     "smollm-360m": "smollm_360m",
     "command-r-35b": "command_r_35b",
+    "qwen2-vl-2b": "qwen2_vl_2b",
 }
 
 #: the reference's other architectures, id -> the family the port still lacks.
 WAITING = {
-    "mamba2-370m": "ssm",
-    "zamba2-2.7b": "hybrid",
     "whisper-medium": "audio",
-    "qwen2-vl-2b": "vlm",
 }
 
 ARCH_NAMES = list(ARCH_MODULES)

@@ -22,12 +22,16 @@ reference's ``jax.tree_util`` paths of ``LMTrainState``::
     tile/tile_ids, tile/step                  the id-only vocab tile, if any
     step                                      ()
 
-Both LM families carry over by these names: an MoE layer's leaves are
-``params/blocks/moe/{router,w_gate,w_up,w_down}``, and an interleaved MoE
-stack's ``params/blocks/dense/...`` and ``params/blocks/moe_blk/...``.  A
-decode cache (``models/lm.py::DecodeCache``) is named as the reference's
-flattens: ``kv/k``, ``kv/v``, or for the interleaved MoE layout
-``kv/0/{k,v}`` (the dense layers) and ``kv/1/{k,v}`` (the MoE layers).
+Every LM family the port runs carries over by these names: an MoE layer's
+leaves are ``params/blocks/moe/{router,w_gate,w_up,w_down}``, an interleaved
+MoE stack's ``params/blocks/dense/...`` and ``params/blocks/moe_blk/...``, a
+Mamba stack's ``params/blocks/{ln,mamba/...}`` and a hybrid's shared block
+``params/shared/{ln1,ln2,attn/...,mlp/...}``.  A decode cache
+(``models/lm.py::DecodeCache``) is named as the reference's flattens:
+``kv/k``, ``kv/v``, or for the interleaved MoE layout ``kv/0/{k,v}`` (the
+dense layers) and ``kv/1/{k,v}`` (the MoE layers); a Mamba cache
+``mamba/conv``, ``mamba/state``, and a hybrid's shared K/V
+``shared_kv/{k,v}``.
 """
 from __future__ import annotations
 
@@ -39,6 +43,7 @@ from repro_torch.core.mf import MFParams, MFState
 from repro_torch.core.samplers import TileState
 from repro_torch.models.layers import KVCache
 from repro_torch.models.lm import DecodeCache
+from repro_torch.models.ssm import MambaCache
 from repro_torch.models.params import tree_from_items
 from repro_torch.optim.optimizers import AdamMoments, OptState
 from repro_torch.optim.quantization import QuantizedTable
@@ -145,12 +150,18 @@ def decode_cache_from_numpy(tree: dict, device="cpu") -> DecodeCache:
     ``device`` from the numpy leaf dict of the reference's cache (the names
     of the module docstring; bfloat16 arrays keep their bits)."""
     def kv(prefix):
+        if f"{prefix}/k" not in tree:
+            return None
         return KVCache(_tensor_from_numpy(tree[f"{prefix}/k"], device),
                        _tensor_from_numpy(tree[f"{prefix}/v"], device))
 
+    mamba = None
+    if "mamba/conv" in tree:
+        mamba = MambaCache(_tensor_from_numpy(tree["mamba/conv"], device),
+                           _tensor_from_numpy(tree["mamba/state"], device))
     if "kv/0/k" in tree:
         return DecodeCache(kv=(kv("kv/0"), kv("kv/1")))
-    return DecodeCache(kv=kv("kv"))
+    return DecodeCache(kv=kv("kv"), mamba=mamba, shared_kv=kv("shared_kv"))
 
 
 def decode_cache_to_numpy(cache: DecodeCache) -> dict:
@@ -161,9 +172,16 @@ def decode_cache_to_numpy(cache: DecodeCache) -> dict:
         t = t.detach().cpu()
         return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
-    members = cache.kv if isinstance(cache.kv[0], KVCache) else (cache.kv,)
     out = {}
-    for i, m in enumerate(members):
-        prefix = f"kv/{i}" if len(members) > 1 else "kv"
-        out[f"{prefix}/k"], out[f"{prefix}/v"] = arr(m.k), arr(m.v)
+    if cache.kv is not None:
+        members = cache.kv if isinstance(cache.kv[0], KVCache) else (cache.kv,)
+        for i, m in enumerate(members):
+            prefix = f"kv/{i}" if len(members) > 1 else "kv"
+            out[f"{prefix}/k"], out[f"{prefix}/v"] = arr(m.k), arr(m.v)
+    if cache.mamba is not None:
+        out["mamba/conv"], out["mamba/state"] = (arr(cache.mamba.conv),
+                                                 arr(cache.mamba.state))
+    if cache.shared_kv is not None:
+        out["shared_kv/k"], out["shared_kv/v"] = (arr(cache.shared_kv.k),
+                                                  arr(cache.shared_kv.v))
     return out

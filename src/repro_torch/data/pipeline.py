@@ -27,6 +27,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import weakref
+import zlib
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -528,16 +529,28 @@ def procedural_cf_batch(step: int, batch_size: int, num_users: int,
 
 
 def lm_batch(step: int, batch_size: int, seq_len: int, vocab: int,
-             seed: int = 0, device="cpu") -> dict:
+             seed: int = 0, device="cpu", extras: Optional[dict] = None) -> dict:
     """Synthetic LM batch ``{"tokens": (B, S) int64}`` on ``device``, pure
     in (seed, step): uniform tokens of which half the positions (a fair coin
     each) copy their predecessor, the reference's Markov structure, so the
     loss has signal to learn.  Drawn from ``fold_in(fold_in(seed, step),
-    BATCH_STREAM)`` on the device; the modality extras (audio frames, VLM
-    patches) wait for their families."""
-    gen = generator(fold_in(fold_in(seed, step), BATCH_STREAM), device)
+    BATCH_STREAM)`` on the device.
+
+    ``extras`` (``{name: (shape, dtype)}``, e.g. a VLM's ``patches``) adds
+    one tensor per name, 0.1 times unit normals of that shape and dtype,
+    each from its own stream ``fold_in(<the batch's key>, crc32(name))``:
+    pure in (seed, step, name), keyed by CRC-32 as the reference keys it
+    (never ``hash``, whose string hashes are salted per process), and the
+    tokens are the same with or without extras."""
+    key = fold_in(fold_in(seed, step), BATCH_STREAM)
+    gen = generator(key, device)
     base = torch.randint(0, vocab, (batch_size, seq_len), generator=gen,
                          device=device)
     copy = torch.rand((batch_size, seq_len), generator=gen, device=device) < 0.5
     shifted = torch.cat([base[:, :1], base[:, :-1]], dim=1)
-    return {"tokens": torch.where(copy, shifted, base)}
+    batch = {"tokens": torch.where(copy, shifted, base)}
+    for name, (shape, dtype) in (extras or {}).items():
+        g = generator(fold_in(key, zlib.crc32(name.encode()) & 0x7FFFFFFF), device)
+        batch[name] = torch.randn(tuple(shape), generator=g, dtype=dtype,
+                                  device=device) * 0.1
+    return batch

@@ -10,10 +10,12 @@ recommendation serving.
     PYTHONPATH=src python -m repro_torch.launch.serve --mf --pruner tile \\
         --expand-tiles 4 --max-batch 32 --max-wait-ms 2      # on the card
 
-Without ``--mf`` it serves the LM named by ``--arch`` (a dense or MoE
-architecture) at its reduced size, as the reference does (its ``--reduced``
-cannot be switched off): random parameters from key 0, a random prompt of
-``--batch`` x ``--prompt-len`` tokens from key 1, one ``prefill``, the cache
+Without ``--mf`` it serves the LM named by ``--arch`` (a dense, MoE, SSM,
+hybrid or VLM architecture) at its reduced size, as the reference does (its
+``--reduced`` cannot be switched off): random parameters from key 0, a
+random prompt of ``--batch`` x ``--prompt-len`` tokens from key 1 (a VLM's
+first ``num_patches`` positions zero patch embeddings, as the reference
+feeds them), one ``prefill``, the cache
 padded to the prompt plus ``--decode-steps`` positions, then greedy
 ``decode_step``s whose tokens stay on the device until one readback at the
 end.  It prints the reference's three lines: prefill ms, decode ms per
@@ -25,9 +27,7 @@ for (``--pruner both``, the default, runs the exact and the tile pruner in
 turn), and ends as the reference does: the streaming service, warm-started
 on the trained state and a ring over the offline dataset, runs two live
 ingest → train → ``refresh_from`` rounds against the last server, with no
-new call shape.  The LM's prefill/decode serving waits for ROADMAP.md A.6:
-without ``--mf`` the launcher raises.  Runs on the card unless ``--device
-cpu`` is given.
+new call shape.  Runs on the card unless ``--device cpu`` is given.
 """
 from __future__ import annotations
 
@@ -160,6 +160,9 @@ def serve_lm(args, device) -> None:
     batch = {"tokens": torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),
                                      generator=mf.generator(1, device),
                                      device=device)}
+    if cfg.family == "vlm":
+        batch["patches"] = torch.zeros((args.batch, cfg.num_patches, cfg.d_model),
+                                       device=device)
 
     def sync():
         if device.type == "cuda":

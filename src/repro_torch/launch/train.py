@@ -22,10 +22,11 @@ meshes shard the MF model).
         --batch 1024 --backend pallas --update-impl pallas --mesh host \\
         --mesh-data 2 --dist-backend gloo   # 2 ranks sharing one card
 
-Without ``--mf`` it trains the LM named by ``--arch`` (a dense or MoE
-architecture; default smollm-360m) with the HEAT vocab head (``--loss
-heat``, whose engine ``--backend``/``--sampler`` select) or the
-full-softmax head.  Runs on the
+Without ``--mf`` it trains the LM named by ``--arch`` (a dense, MoE, SSM,
+hybrid or VLM architecture; default smollm-360m) with the HEAT vocab head
+(``--loss heat``, whose engine ``--backend``/``--sampler`` select) or the
+full-softmax head; a VLM's batches carry ``num_patches`` rows of synthetic
+patch embeddings (``lm_batch(extras=)``), as the reference's do.  Runs on the
 card unless ``--device cpu`` is given; with no CUDA device it exits with an
 error instead of falling back.
 
@@ -267,7 +268,12 @@ def _train_lm(args, device, ap) -> list:
         grad_accum=args.grad_accum, ckpt_dir=args.ckpt_dir,
         ckpt_every=args.ckpt_every, fail_at_step=args.fail_at_step,
         steps_per_dispatch=args.steps_per_dispatch)
-    _, losses = trainer.train_lm(cfg, opts, tcfg, device=device)
+    extras = None
+    if cfg.family == "vlm":
+        import torch
+        extras = {"patches": ((args.batch, cfg.num_patches, cfg.d_model),
+                              torch.float32)}
+    _, losses = trainer.train_lm(cfg, opts, tcfg, extras, device=device)
     return losses
 
 

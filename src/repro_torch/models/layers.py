@@ -1,5 +1,6 @@
-"""Transformer building blocks of the train path: RMSNorm, the MLPs, standard
-RoPE and GQA attention — the port of ``src/repro/models/layers.py``.
+"""Transformer building blocks of the train path: RMSNorm, the MLPs, RoPE
+(standard and Qwen2-VL's M-RoPE) and GQA attention — the port of
+``src/repro/models/layers.py``.
 
 Everything here is plain PyTorch (``matmul``/``einsum``), as the reference
 leaves it to XLA.  The attention is the reference's
@@ -8,8 +9,8 @@ kernel sits behind ``kernels/ops.py::attention``, which the model does not
 call, as in the reference.  Layouts are the reference's: activations
 ``(B, S, H, hd)``, ``wq`` ``(d, Hq, hd)``, ``wk``/``wv`` ``(d, Hkv, hd)``,
 ``wo`` ``(Hq, hd, d)``.  The decode path's :class:`KVCache` and
-:func:`decode_attention` are here too; cross-attention and M-RoPE wait for
-the audio and VLM families.
+:func:`decode_attention` are here too; cross-attention waits for the audio
+family.
 
 Determinism on the card: the GQA repeat of K and V is a broadcast and a
 reshape, whose backward is a sum, where ``repeat_interleave`` would go
@@ -62,11 +63,33 @@ def _rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
                                          device=device) / half))
 
 
-def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float):
-    """positions (B, S) integers -> cos, sin (B, S, head_dim // 2), fp32
-    (standard RoPE; M-RoPE waits for the VLM family)."""
+def _mrope_sections(head_dim: int) -> tuple[int, int, int]:
+    """Qwen2-VL's (t, h, w) split of the half dimension (16/24/24 at
+    hd = 128)."""
+    half = head_dim // 2
+    t = half // 4
+    h = (half - t) // 2
+    return (t, h, half - t - h)
+
+
+def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float,
+                 mode: str = "standard"):
+    """positions (B, S) integers, or (B, S, 3) (t, h, w) for ``mode=
+    "mrope"`` -> cos, sin (B, S, head_dim // 2), fp32.  M-RoPE rotates the
+    three sections of the frequencies (:func:`_mrope_sections`) by the
+    three position components; (B, S) positions count for all three."""
     freqs = _rope_freqs(head_dim, theta, positions.device)
-    ang = positions.float()[..., None] * freqs[None, None]
+    if mode == "mrope":
+        if positions.ndim == 2:
+            positions = torch.stack([positions] * 3, dim=-1)
+        parts = torch.split(freqs, list(_mrope_sections(head_dim)))
+        ang = torch.cat([positions[..., i].float()[..., None] * parts[i][None, None]
+                         for i in range(3)], dim=-1)
+    elif mode == "standard":
+        ang = positions.float()[..., None] * freqs[None, None]
+    else:
+        raise ValueError(f"unknown rope mode {mode!r}; available: standard, "
+                         "mrope")
     return torch.cos(ang), torch.sin(ang)
 
 

@@ -1,6 +1,7 @@
 """The language model — the port of ``src/repro/models/lm.py`` for the
-dense and MoE families: training, and serving by ``prefill`` then
-``decode_step`` against a KV cache.
+dense, MoE, SSM (Mamba2), hybrid (Zamba2) and VLM (Qwen2-VL) families:
+training, and serving by ``prefill`` then ``decode_step`` against a KV
+cache, a Mamba state cache, or both.
 
 Parameters are the reference's tree: nested dicts with the layers stacked on
 a leading (L, ...) axis (``blocks/attn/wq`` is (L, d, Hq, hd)), so
@@ -12,22 +13,31 @@ only the block inputs, as the reference's ``jax.checkpoint`` with
 ``nothing_saveable`` does.  An interleaved MoE stack (``moe_every > 1``,
 llama4) runs in groups of ``moe_every - 1`` dense blocks and one MoE block,
 with the reference's two stacks ``blocks/dense`` (G * (moe_every - 1), ...)
-and ``blocks/moe_blk`` (G, ...).
+and ``blocks/moe_blk`` (G, ...).  An SSM stack is L Mamba blocks
+(``blocks/{ln, mamba}``); a hybrid stack runs in groups of
+``shared_attn_every`` Mamba blocks followed by one application of the shared
+attention block and the shared MLP (``shared/{ln1, ln2, attn, mlp}``, no
+leading axis), whose gradient sums over its G applications; with
+``remat="full"`` the whole group is the checkpointed unit, as in the
+reference.  The VLM stack is the dense one with M-RoPE positions and the
+batch's ``patches`` rows in place of the first token embeddings.
 
 Entry points:
 
 - ``forward_train``: the next-token objective with the HEAT sampled-CCL
   head (``core/heat_head.py``) or the full-softmax baseline;
 - ``prefill``: tokens -> (last-position logits, the cache of every layer's
-  K/V in ``cache_dtype``);
-- ``pad_cache``: grow the cache's sequence dimension for decoding;
+  K/V in ``cache_dtype``; Mamba caches in the dtype they are computed in,
+  the state fp32, as the reference keeps them);
+- ``pad_cache``: grow the K/V caches' sequence dimension for decoding (a
+  Mamba cache does not depend on the length);
 - ``decode_step``: one token per sequence at a host-int position; the new
-  K/V rows are written into the cache in place and the query attends in
-  fp32.
+  K/V rows and the new Mamba windows and states are written into the cache
+  in place and the query attends in fp32.
 
 ``prefill`` and ``decode_step`` run without autograd, on the card unless
-given ``device="cpu"``.  The SSM, hybrid, audio and VLM families wait for
-later slices (:data:`WAITING_FAMILIES`).
+given ``device="cpu"``.  The audio family waits for a later slice
+(:data:`WAITING_FAMILIES`).
 """
 from __future__ import annotations
 
@@ -46,6 +56,7 @@ from repro_torch.core.heat_head import (
 )
 from repro_torch.core.tiling import gather_rows
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import (
     KVCache,
@@ -63,15 +74,10 @@ from repro_torch.models.params import (
     tree_items,
 )
 
-FAMILIES = ("dense", "moe")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
 
 #: the reference's other families and the slice of the port that brings each.
 WAITING_FAMILIES = {
-    "ssm": "the SSM and hybrid slice (models/ssm.py and its MambaCache "
-           "decode; ROADMAP.md A.6)",
-    "hybrid": "the SSM and hybrid slice (models/ssm.py and its MambaCache "
-              "decode; ROADMAP.md A.6)",
-    "vlm": "the VLM slice (M-RoPE and patch inputs; ROADMAP.md A.6)",
     "audio": "the audio slice (cross-attention and the audio encoder; "
              "ROADMAP.md A.6)",
 }
@@ -123,9 +129,13 @@ def _moe_block_defs(cfg: ArchConfig, L: int) -> dict:
             "attn": attn_defs(cfg, L), "moe": moe_mod.moe_defs(cfg, L)}
 
 
+def _mamba_block_defs(cfg: ArchConfig, L: int) -> dict:
+    return {"ln": _norm_def(L, cfg.d_model), "mamba": ssm_mod.mamba_defs(cfg, L)}
+
+
 def num_groups(cfg: ArchConfig) -> int:
-    """The reference's scan length: the layers, or the groups of an
-    interleaved MoE stack (hybrid groups wait for their family)."""
+    """The reference's scan length: the layers, or the groups of a hybrid
+    or an interleaved MoE stack."""
     if cfg.family == "hybrid":
         return cfg.n_layers // cfg.shared_attn_every
     if cfg.family == "moe" and cfg.moe_every > 1:
@@ -156,6 +166,11 @@ def model_defs(cfg: ArchConfig) -> dict:
                           "moe_blk": _moe_block_defs(cfg, g)}
     elif cfg.family == "moe":
         defs["blocks"] = _moe_block_defs(cfg, cfg.n_layers)
+    elif cfg.family in ("ssm", "hybrid"):
+        defs["blocks"] = _mamba_block_defs(cfg, cfg.n_layers)
+        if cfg.family == "hybrid":
+            defs["shared"] = {"ln1": _norm_def(0, d), "ln2": _norm_def(0, d),
+                              "attn": attn_defs(cfg, 0), "mlp": mlp_defs(cfg, 0)}
     else:
         defs["blocks"] = _dense_block_defs(cfg, cfg.n_layers)
     return defs
@@ -168,10 +183,35 @@ def init_params(key: int, cfg: ArchConfig, dtype=torch.float32,
     return materialize(key, model_defs(cfg), dtype, mf.resolve_device(device))
 
 
-def _positions(batch: int, seq: int, device, start: int = 0):
-    """(B, S) positions ``start .. start + S - 1`` (standard RoPE; M-RoPE
-    waits for the VLM family)."""
-    return (torch.arange(seq, device=device) + start)[None].expand(batch, seq)
+def _positions(cfg: ArchConfig, batch: int, seq: int, device,
+               start: int = 0):
+    """(B, S) positions ``start .. start + S - 1``, or for M-RoPE (B, S, 3)
+    (t, h, w) components: with more tokens than ``num_patches``, patch i
+    sits at (0, i // side, i % side) on a square grid and the text after it
+    at (j, j, j) for its index j; a shorter call (a decode step) sits at
+    (pos, pos, pos)."""
+    base = torch.arange(seq, device=device) + start
+    if cfg.rope_mode != "mrope":
+        return base[None].expand(batch, seq)
+    n = cfg.num_patches
+    if n and seq > n:
+        side = max(int(n ** 0.5), 1)
+        pidx = torch.arange(n, device=device)
+        patch3 = torch.stack([torch.zeros_like(pidx), pidx // side,
+                              pidx % side], -1)
+        text = torch.arange(n, seq, device=device) + start
+        pos3 = torch.cat([patch3, torch.stack([text] * 3, -1)], dim=0)
+    else:
+        pos3 = torch.stack([base] * 3, -1)
+    return pos3[None].expand(batch, seq, 3)
+
+
+def _rope(cfg: ArchConfig, b: int, s: int, device, start: int):
+    """cos, sin of the stack's attention: M-RoPE for the VLM family, the
+    standard rotation for the others (a hybrid's shared block too)."""
+    mode = cfg.rope_mode if cfg.family == "vlm" else "standard"
+    return rope_cos_sin(_positions(cfg, b, s, device, start), cfg.head_dim,
+                        cfg.rope_theta, mode)
 
 
 def _attn_block(lp: dict, h, cos, sin, cfg: ArchConfig, opts: TrainOptions,
@@ -189,6 +229,33 @@ def _attn_block(lp: dict, h, cos, sin, cfg: ArchConfig, opts: TrainOptions,
     out = moe_mod.moe_apply(lp["moe"], hn, cfg) if moe else mlp_apply(
         lp["mlp"], hn, cfg)
     return h + out, kv
+
+
+def _mamba_block(lp: dict, h, cfg: ArchConfig, cache=None):
+    """Pre-norm Mamba mixer with its residual; returns ``(h, cache)``: the
+    layer's final :class:`~repro_torch.models.ssm.MambaCache` (train,
+    prefill), or with ``cache`` given (decode, h (B, 1, d)) the advanced
+    one."""
+    hn = rms_norm(h, lp["ln"], cfg.norm_eps)
+    if cache is None:
+        y, mc = ssm_mod.mamba_apply(lp["mamba"], hn, cfg)
+    else:
+        y, mc = ssm_mod.mamba_decode(lp["mamba"], hn, cache, cfg)
+    return h + y, mc
+
+
+def _shared_block(sp: dict, h, cos, sin, cfg: ArchConfig, opts: TrainOptions,
+                  cache: Optional[KVCache] = None, pos: Optional[int] = None):
+    """One application of a hybrid stack's shared attention block and
+    shared MLP (pre-norm, residuals); returns ``(h, kv)``.  The attention
+    takes ``probs_dtype`` but not ``attn_acc_dtype``, as the reference's
+    hybrid group does."""
+    a, kv = attn_apply(sp["attn"], rms_norm(h, sp["ln1"], cfg.norm_eps), cos,
+                       sin, cfg, causal=True, cache=cache, pos=pos,
+                       attn_chunk=opts.attn_chunk, probs_dtype=opts.probs_dtype)
+    h = h + a
+    return h + mlp_apply(sp["mlp"], rms_norm(h, sp["ln2"], cfg.norm_eps),
+                         cfg), kv
 
 
 def _maybe_remat(fn, opts: TrainOptions):
@@ -248,15 +315,18 @@ def _run_stack(params: dict, h, cfg: ArchConfig, opts: TrainOptions,
     layer's fresh K/V collected into a new :class:`DecodeCache` in
     ``opts.cache_dtype``) or ``decode`` (h is (B, 1, d) at the host int
     ``pos``; each layer writes its K/V row into ``cache`` in place, which
-    is returned)."""
+    is returned).  The SSM and hybrid stacks run in
+    :func:`_run_mamba_stack`."""
     _check_family(cfg)
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r}; available: train, prefill, "
                          "decode")
+    if cfg.family in ("ssm", "hybrid"):
+        h, new_cache = _run_mamba_stack(params, h, cfg, opts, mode, cache, pos)
+        return rms_norm(h, params["final_norm"], cfg.norm_eps), new_cache
     b, s = h.shape[0], h.shape[1]
     decode = mode == "decode"
-    cos, sin = rope_cos_sin(_positions(b, s, h.device, pos if decode else 0),
-                            cfg.head_dim, cfg.rope_theta)
+    cos, sin = _rope(cfg, b, s, h.device, pos if decode else 0)
     plan = _stack_plan(params, cfg)
 
     if mode == "train":
@@ -287,9 +357,77 @@ def _run_stack(params: dict, h, cfg: ArchConfig, opts: TrainOptions,
     return rms_norm(h, params["final_norm"], cfg.norm_eps), new_cache
 
 
+def _run_mamba_stack(params: dict, h, cfg: ArchConfig, opts: TrainOptions,
+                     mode: str, cache, pos: Optional[int]):
+    """:func:`_run_stack` of the SSM and hybrid families, before the final
+    norm.  Prefill collects every layer's Mamba cache, stacked over L in
+    the dtype it was computed in (the reference casts none of it), and a
+    hybrid's shared K/V, G rows in ``opts.cache_dtype``; decode writes the
+    advanced windows, states and K/V rows into ``cache`` in place."""
+    n_layers = cfg.n_layers
+    hybrid = cfg.family == "hybrid"
+    k = cfg.shared_attn_every if hybrid else 1
+    g = n_layers // k
+    b, s = h.shape[0], h.shape[1]
+    decode = mode == "decode"
+    layers = _layers(params["blocks"], n_layers)
+    groups = [layers[i * k:(i + 1) * k] for i in range(g)]
+    shared = params.get("shared")
+    if hybrid:
+        cos, sin = _rope(cfg, b, s, h.device, pos if decode else 0)
+
+    if mode == "train":
+        def group_fn(glayers, sp, x):
+            for lp in glayers:
+                x = _mamba_block(lp, x, cfg)[0]
+            return _shared_block(sp, x, cos, sin, cfg, opts)[0] if hybrid else x
+        body = _maybe_remat(group_fn, opts)
+        for glayers in groups:
+            h = body(glayers, shared, h)
+        return h, None
+
+    if decode:
+        mamba, skv = cache.mamba, cache.shared_kv
+    else:
+        mamba, skv = [], None
+        if hybrid:
+            shape = (g, b, s, cfg.n_kv_heads, cfg.head_dim)
+            skv = KVCache(*(torch.empty(shape, dtype=opts.cache_dtype,
+                                        device=h.device) for _ in range(2)))
+    for gi, glayers in enumerate(groups):
+        for i, lp in enumerate(glayers):
+            li = gi * k + i
+            if decode:
+                layer_mc = ssm_mod.MambaCache(mamba.conv[li], mamba.state[li])
+                h, mc = _mamba_block(lp, h, cfg, cache=layer_mc)
+                layer_mc.conv.copy_(mc.conv)
+                layer_mc.state.copy_(mc.state)
+            else:
+                h, mc = _mamba_block(lp, h, cfg)
+                mamba.append(mc)
+        if hybrid:
+            layer_kv = KVCache(skv.k[gi], skv.v[gi])
+            h, kv = _shared_block(shared, h, cos, sin, cfg, opts,
+                                  cache=layer_kv if decode else None, pos=pos)
+            if not decode:             # prefill: collect, cast to cache_dtype
+                layer_kv.k.copy_(kv.k)
+                layer_kv.v.copy_(kv.v)
+    if decode:
+        return h, cache
+    mamba = ssm_mod.MambaCache(torch.stack([m.conv for m in mamba]),
+                               torch.stack([m.state for m in mamba]))
+    return h, DecodeCache(mamba=mamba, shared_kv=skv)
+
+
 def embed_inputs(params: dict, batch: dict, cfg: ArchConfig):
-    """Token embedding lookup (deterministic backward)."""
-    return gather_rows(params["embed"], batch["tokens"])
+    """Token embedding lookup (deterministic backward); for the VLM family
+    the batch's ``patches`` (B, P, d) rows take the place of the first P
+    positions."""
+    h = gather_rows(params["embed"], batch["tokens"])
+    if cfg.family == "vlm" and "patches" in batch:
+        patches = batch["patches"].to(h.dtype)
+        h = torch.cat([patches, h[:, patches.shape[1]:]], dim=1)
+    return h
 
 
 def _out_table(params: dict, cfg: ArchConfig):
@@ -316,8 +454,8 @@ def head_loss(params: dict, h, labels, cfg: ArchConfig, opts: TrainOptions,
 def forward_train(params: dict, batch: dict, cfg: ArchConfig,
                   opts: TrainOptions, rng: int,
                   tile: Optional[samplers.TileState] = None):
-    """batch: ``tokens`` (B, S).  Next-token objective; returns
-    ``(loss, new_tile)``."""
+    """batch: ``tokens`` (B, S) [+ ``patches`` (B, P, d) for the VLM
+    family].  Next-token objective; returns ``(loss, new_tile)``."""
     labels = batch["tokens"][:, 1:]
     h = embed_inputs(params, batch, cfg)
     h, _ = _run_stack(params, h, cfg, opts)
@@ -329,8 +467,11 @@ class DecodeCache(NamedTuple):
     ``()`` placeholders).  ``kv``: a :class:`KVCache` of (L, B, S, Hkv, hd)
     tensors, or for an interleaved MoE stack the pair (dense layers'
     (G * (moe_every - 1), B, S, Hkv, hd), MoE layers' (G, B, S, Hkv, hd)).
-    ``mamba``, ``shared_kv`` and ``cross_kv`` wait for the SSM, hybrid and
-    audio families."""
+    ``mamba``: the SSM and hybrid families' :class:`~repro_torch.models.
+    ssm.MambaCache` stacked over L (conv (L, B, cw - 1, d_in + 2 g s),
+    state (L, B, h, s, p)); ``shared_kv``: a hybrid's :class:`KVCache` of
+    (G, B, S, Hkv, hd), one row per application of its shared block.
+    ``cross_kv`` waits for the audio family."""
 
     kv: Any = None
     mamba: Any = None
@@ -341,20 +482,35 @@ class DecodeCache(NamedTuple):
 def cache_defs(cfg: ArchConfig, batch: int, seq: int) -> DecodeCache:
     """The decode cache's ParamDefs (zeros) for ``batch`` sequences of
     ``seq`` positions, in the layout :func:`prefill` returns."""
-    if cfg.family in ("ssm", "hybrid", "audio"):
-        raise ValueError(f"the {cfg.family!r} decode cache waits for "
-                         f"{WAITING_FAMILIES[cfg.family]}")
     _check_family(cfg)
     shape = (batch, seq, cfg.n_kv_heads, cfg.head_dim)
-    kv = [KVCache(ParamDef((n,) + shape, "zeros"), ParamDef((n,) + shape, "zeros"))
-          for n in _kv_rows(cfg)]
-    return DecodeCache(kv=tuple(kv) if _interleaved(cfg) else kv[0])
+
+    def kv(n):
+        return KVCache(ParamDef((n,) + shape, "zeros"),
+                       ParamDef((n,) + shape, "zeros"))
+
+    if cfg.family == "ssm":
+        return DecodeCache(mamba=_mamba_cache_defs(cfg, cfg.n_layers, batch))
+    if cfg.family == "hybrid":
+        return DecodeCache(mamba=_mamba_cache_defs(cfg, cfg.n_layers, batch),
+                           shared_kv=kv(num_groups(cfg)))
+    members = [kv(n) for n in _kv_rows(cfg)]
+    return DecodeCache(kv=tuple(members) if _interleaved(cfg) else members[0])
+
+
+def _mamba_cache_defs(cfg: ArchConfig, L: int, batch: int):
+    """ParamDefs (zeros) of L stacked Mamba caches for ``batch`` sequences:
+    no dimension grows with the context."""
+    d_in, h, p, g, s = ssm_mod._dims(cfg)
+    return ssm_mod.MambaCache(
+        conv=ParamDef((L, batch, cfg.conv_width - 1, d_in + 2 * g * s), "zeros"),
+        state=ParamDef((L, batch, h, s, p), "zeros"))
 
 
 def pad_cache(cache: DecodeCache, cfg: ArchConfig, max_len: int) -> DecodeCache:
     """Grow the K/V caches' sequence dimension (dim 2 of (L, B, S, Hkv, hd))
     to ``max_len`` with zero rows: the prefill -> decode handoff.  A cache
-    already that long is returned as it is."""
+    already that long is returned as it is; a Mamba cache is left alone."""
     def pad(a):
         extra = max_len - a.shape[2]
         return a if extra <= 0 else F.pad(a, (0, 0, 0, 0, 0, extra))
@@ -382,12 +538,13 @@ def _entry_device(params: dict, device) -> torch.device:
 
 def prefill(params: dict, batch: dict, cfg: ArchConfig,
             opts: TrainOptions = TrainOptions(), *, device=None):
-    """Full-prompt pass: ``batch["tokens"]`` (B, S) -> (last-position
-    logits (B, V), the primed :class:`DecodeCache` (S positions, in
-    ``opts.cache_dtype``)).  Runs without autograd on ``device``."""
+    """Full-prompt pass: ``batch["tokens"]`` (B, S) [+ ``patches`` for the
+    VLM family] -> (last-position logits (B, V), the primed
+    :class:`DecodeCache` (S positions of K/V in ``opts.cache_dtype``)).
+    Runs without autograd on ``device``."""
     dev = _entry_device(params, device)
     with torch.no_grad():
-        h = embed_inputs(params, {"tokens": batch["tokens"].to(dev)}, cfg)
+        h = embed_inputs(params, {k: v.to(dev) for k, v in batch.items()}, cfg)
         h, cache = _run_stack(params, h, cfg, opts, "prefill")
         logits = h[:, -1] @ _out_table(params, cfg).T
     return logits, cache
@@ -398,14 +555,16 @@ def decode_step(params: dict, cache: DecodeCache, token, pos: int,
                 device=None):
     """One decoding step: ``token`` (B, 1) at position ``pos`` (a host int;
     a 0-d tensor is read back once) -> (logits (B, 1, V), the cache with
-    the new K/V rows written in place).  Runs without autograd on
-    ``device``."""
+    the new K/V rows and Mamba windows and states written in place).  Runs
+    without autograd on ``device``."""
     dev = _entry_device(params, device)
     pos = int(pos)
-    kv = cache.kv[0] if _interleaved(cfg) else cache.kv
-    if not 0 <= pos < kv.k.shape[2]:
+    kv = (cache.shared_kv if cfg.family == "hybrid" else
+          cache.kv[0] if _interleaved(cfg) else cache.kv)
+    rows = kv.k.shape[2] if kv is not None else pos + 1
+    if not 0 <= pos < rows:
         raise ValueError(f"position {pos} is outside the cache's "
-                         f"{kv.k.shape[2]} rows (pad_cache grows it)")
+                         f"{rows} rows (pad_cache grows it)")
     with torch.no_grad():
         h = params["embed"][token.to(dev)]
         h, cache = _run_stack(params, h, cfg, opts, "decode", cache=cache,

@@ -1,7 +1,7 @@
 """The training loops of the port: the MF half of
 ``src/repro/train/trainer.py`` (``train_mf``) and its LM half
-(``train_lm``: a dense or MoE LM with the HEAT vocab head or the softmax
-head).
+(``train_lm``: a dense, MoE, SSM, hybrid or VLM LM with the HEAT vocab
+head or the softmax head).
 
 The loop runs in K-step windows: an :class:`EpochExecutor` runs K steps as a
 Python loop, each drawing its batch on the device from (seed, step), and
@@ -238,8 +238,10 @@ def make_lm_train_step_raw(cfg: ArchConfig, opts: lm.TrainOptions,
                            optimizer: Optimizer, lr: float,
                            grad_accum: int = 1) -> Callable:
     """``step_fn(state, batch, rng) -> (state, loss)``: the LM step.  ``rng``
-    is the step's integer key; ``grad_accum > 1`` splits the batch into that
-    many micro-batches (micro-batch ``i`` keyed ``fold_in(rng, i)``), sums
+    is the step's integer key; ``grad_accum > 1`` splits every tensor of the
+    batch (the tokens and any modality extras) along its first dimension
+    into that many micro-batches (micro-batch ``i`` keyed ``fold_in(rng,
+    i)``), sums
     their gradients in order, divides by ``grad_accum`` and applies one
     optimizer update.  The loss is a 0-d tensor on the device."""
 
@@ -297,10 +299,13 @@ def init_lm_state(seed: int, cfg: ArchConfig, opts: lm.TrainOptions,
     return LMTrainState(params, optimizer.init(params), tile, 0)
 
 
-def train_lm(cfg: ArchConfig, opts: lm.TrainOptions, tcfg: TrainerConfig, *,
-             device=None, log: Callable[[str], None] = print):
+def train_lm(cfg: ArchConfig, opts: lm.TrainOptions, tcfg: TrainerConfig,
+             extras_spec: Optional[dict] = None, *, device=None,
+             log: Callable[[str], None] = print):
     """End-to-end LM training with restart on failure; returns
-    ``(state, losses)``.
+    ``(state, losses)``.  ``extras_spec`` (``{name: (shape, dtype)}``) adds
+    the modality inputs to every batch (``pipeline.lm_batch(extras=)``: a
+    VLM's ``patches``).
 
     Runs on the card unless ``device`` names another device.  Batches are
     drawn on the device from (seed, step) (``tcfg.fixed_batch``: always
@@ -320,7 +325,7 @@ def train_lm(cfg: ArchConfig, opts: lm.TrainOptions, tcfg: TrainerConfig, *,
     def body(state: LMTrainState, step: int):
         batch = pipeline.lm_batch(0 if tcfg.fixed_batch else step,
                                   tcfg.batch_size, tcfg.seq_len, cfg.vocab,
-                                  tcfg.seed, dev)
+                                  tcfg.seed, dev, extras_spec)
         return step_fn(state, batch, mf.fold_in(tcfg.seed, step))
 
     executor = EpochExecutor(body, tcfg.steps_per_dispatch)

@@ -145,7 +145,7 @@ def test_config_is_the_reference_config():
                                                       49152)
     assert get_config("smollm_360m") == full
     with pytest.raises(ValueError, match="waits"):
-        get_config("mamba2-370m")
+        get_config("whisper-medium")
     with pytest.raises(ValueError, match="unknown"):
         get_config("no-such-model")
 
@@ -518,7 +518,7 @@ def test_cli_trains_the_reduced_lm_on_cpu():
     assert lines[0].startswith("[launch] LM head engine: pallas+scatter_add+auto")
     assert lines[-1].startswith("done: 3 steps, final loss")
     bad = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
-                          "--arch", "qwen2-vl-2b", "--device", "cpu"],
+                          "--arch", "whisper-medium", "--device", "cpu"],
                          capture_output=True, text=True, cwd=ROOT, timeout=120,
                          env=_env())
     assert bad.returncode != 0 and "waits" in bad.stderr

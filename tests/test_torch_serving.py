@@ -500,7 +500,7 @@ def test_serve_cli_without_mf_names_the_roadmap_item(capsys):
     family is not ported yet is refused, naming its ROADMAP.md item."""
     from repro_torch.launch import serve
     with pytest.raises(SystemExit):
-        serve.main(["--arch", "mamba2-370m", "--device", "cpu"])
+        serve.main(["--arch", "whisper-medium", "--device", "cpu"])
     assert "A.6" in capsys.readouterr().err
 
 
