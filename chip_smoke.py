@@ -22,7 +22,11 @@ and #6 on every rank; and LM serving (prefill, KV-cache decode, the serve
 CLI) of smollm-360m, granite-8b and a 4-layer moonshot-v1-16b-a3b, the MoE
 model first trained with the HEAT head on kernels #3 and #4; and the SSM,
 hybrid and VLM families (mamba2-370m, zamba2-2.7b, qwen2-vl-2b at full width
-and depth) trained through kernels #3 and #4, then served.
+and depth) trained through kernels #3 and #4, then served; and the audio
+family (whisper-medium at full width and depth: its encoder, the
+cross-attention and the decode cache of the encoder's K/V) trained through
+kernels #3 and #4, then served, and granite-8b trained on the card under
+Adafactor.
 Phases, one line each (a few print more):
 
   1. the card (name and power limit from nvidia-smi);
@@ -212,7 +216,29 @@ Phases, one line each (a few print more):
      (the VLM's prompts start with 256 random patch rows; the Mamba cache
      stays fp32 under the bf16 ``cache_dtype``), its check held with no
      conditioning for mamba2 and with the attention conditioned for the
-     other two; and the seconds of each model and of the phase.
+     other two; and the seconds of each model and of the phase;
+ 21. (a) whisper-medium (24 encoder layers over 1,500 frames, 24 decoder
+     layers with cross-attention, d=1,024, vocab 51,865, 810,987,520
+     parameters) trained as phase 20 trains (AdamW, lr 1e-3, remat full,
+     the HEAT head on ``pallas``) for 8 steps on one fixed batch of 8 x 448
+     tokens (Whisper's decoder context) with 8 x 1,500 frames from
+     ``lm_batch(extras=)``: finite losses, the fixed-batch loss falling,
+     #3 and #4 launched once a step and nothing else, peak memory and its
+     parts; #3 and #4 against their plain versions on the trained head's
+     inputs (T = 3,576, K = 1,024, n = 64; these entries join the kernels
+     line); then phase 19's serving run on the trained weights: 8 prompts
+     of 384 tokens with random frames, 64 greedy steps, the self and the
+     encoder's K/V cached in bf16, the step's byte bound counting the
+     decoder's weights, the output table and both caches read once, and
+     the decode-after-prefill check held with the attention conditioned,
+     the cross-attention included; (b) granite-8b (36 layers, d=4,096,
+     8.25B parameters) trained under Adafactor for 4 steps on one fixed
+     batch of 2 x 512 (its factored moments 0.28 GB; AdamW's would not fit
+     the card): finite losses, the loss falling, #3 and #4 once a step, the
+     peak memory and its parts (parameters, gradients, Adafactor state,
+     the rest), #3 and #4 at its head shape (T = 1,022, K = 4,096; these
+     entries join the kernels line); the phase raises if the model does
+     not fit; and the seconds of each part and of the phase.
 
 Then it prints the total seconds, the kernels' JSON line, the card line, and
 as its last line ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
@@ -232,6 +258,13 @@ import tempfile
 import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
+# Phase 21b trains granite-8b (33 GB of weights, 33 GB of gradients) on the
+# 80 GB card: stacking the last layer-stacked gradient needs one 8.46 GB
+# block while the per-layer pieces are still held, which the caching
+# allocator's fixed segments, fragmented by the backward, cannot find;
+# expandable segments map freed pages back into one range.  Set before
+# torch is first imported (a caller's own setting is kept).
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s, fp32 FLOP/s
 # outside the tensor cores (the fp64 tensor cores' rate is the same 67
@@ -409,8 +442,9 @@ def dequant_summary(kd: dict) -> str:
 
 def lm_eval_loss(params, cfg, opts, tile, dev, b: int = LM_B, s: int = LM_S,
                  extras=None) -> float:
-    """The HEAT loss on the fixed batch phase 10 (or 19c, 20) trains on
-    (``lm_batch`` seed 0, step 0, b x s, with ``extras``: a VLM's patches)
+    """The HEAT loss on the fixed batch phase 10 (or 19c, 20, 21) trains on
+    (``lm_batch`` seed 0, step 0, b x s, with ``extras``: a VLM's patches,
+    an audio model's frames)
     with the fixed key 1000 and a fixed tile, without gradients."""
     import torch
     from repro_torch.data import pipeline
@@ -433,7 +467,8 @@ def lm_head_inputs(params, cfg, opts, tile, dev, b: int = LM_B, s: int = LM_S,
     batch = pipeline.lm_batch(0, b, s, cfg.vocab, seed=0, device=dev, extras=extras)
     table = params["out_embed"]
     with torch.no_grad():
-        h, _ = lm._run_stack(params, lm.embed_inputs(params, batch, cfg), cfg, opts)
+        h, _ = lm._run_stack(params, lm.embed_inputs(params, batch, cfg), cfg, opts,
+                             memory=lm._memory(params, batch, cfg, opts))
         u = h[:, :-1].reshape(-1, cfg.d_model).contiguous()
         p = table[batch["tokens"][:, 1:].reshape(-1)]
         local = torch.randint(0, tile.tile_ids.numel(), (cfg.heat.num_negatives,),
@@ -2058,18 +2093,28 @@ def profile_call(fn, wall_s: float, top_n: int = 5) -> str:
 
 
 def decode_bound(params, cfg, rows: int, cache_bytes_per_row: int,
-                 state_elems: int = 0):
+                 state_elems: int = 0, cross_bytes: int = 0):
     """Least time (ms) of one decode step of SERVE_B tokens with ``rows``
-    cached positions: every weight read once (of the input embedding only
-    the SERVE_B rows), each cached K/V row read once, a Mamba cache's
+    cached positions: every weight the step reads read once (of the input
+    embedding only the SERVE_B rows; an audio model's decoder, not its
+    encoder nor its cross ``wk``/``wv``, whose products the cache holds),
+    each cached K/V row read once, an audio model's ``cross_bytes`` of
+    encoder K/V read once, a Mamba cache's
     ``state_elems`` fp32 elements (state and conv window) read and written
     once, the new rows and the fp32 logits written; and its operations,
     every product at the fp32 rate (an MoE step runs each expert on its
     capacity of SERVE_B slots, so its products are 2 x SERVE_B x every
     weight too; a hybrid applies its shared block G times) plus the
-    attention's over the layers that attend and the recurrence's 6
+    attention's over the layers that attend (and the cross-attention's
+    over the encoder_seq frames) and the recurrence's 6
     operations an element of the Mamba cache."""
     n_weights = sum(x.numel() for x in _leaves(params)) - cfg.vocab * cfg.d_model
+    cross_rows = 0
+    if cfg.family == "audio":
+        n_weights -= sum(x.numel() for x in _leaves(
+            {k: params[k] for k in ("encoder", "enc_norm")}))
+        n_weights -= sum(params["blocks"]["cross"][w].numel() for w in ("wk", "wv"))
+        cross_rows = cfg.encoder_seq
     n_applied, attn_layers = n_weights, cfg.n_layers
     if cfg.family == "hybrid":
         attn_layers = cfg.n_layers // cfg.shared_attn_every
@@ -2077,9 +2122,9 @@ def decode_bound(params, cfg, rows: int, cache_bytes_per_row: int,
     elif cfg.family == "ssm":
         attn_layers = 0
     nbytes = (4 * n_weights + 4 * SERVE_B * cfg.d_model + 8 * state_elems
-              + cache_bytes_per_row * (rows + 1) + 4 * SERVE_B * cfg.vocab)
+              + cache_bytes_per_row * (rows + 1) + cross_bytes + 4 * SERVE_B * cfg.vocab)
     flops = (2 * SERVE_B * n_applied + 6 * state_elems
-             + 4 * SERVE_B * cfg.n_heads * cfg.head_dim * rows * attn_layers)
+             + 4 * SERVE_B * cfg.n_heads * cfg.head_dim * (rows + cross_rows) * attn_layers)
     return bound(nbytes, flops)
 
 
@@ -2092,10 +2137,12 @@ def condition_attention_(tree: dict, cfg) -> None:
     """Scale every attention projection in place to 1/sqrt of its
     contraction width (``wq``, ``wk``, ``wv``: d; ``wo``: Hq x hd), where
     the reference's init divides by the second-to-last dimension (Hq, Hkv or
-    hd) and so makes the attention logits of order 100."""
+    hd) and so makes the attention logits of order 100: the self-attention
+    (``attn``, an audio encoder's too) and an audio decoder's
+    cross-attention (``cross``)."""
     d, hq, hkv = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
     for k, v in tree.items():
-        if k == "attn":
+        if k in ("attn", "cross"):
             v["wq"].mul_(math.sqrt(hq / d))
             v["wk"].mul_(math.sqrt(hkv / d))
             v["wv"].mul_(math.sqrt(hkv / d))
@@ -2113,10 +2160,12 @@ def kv_members(cache) -> list:
     return kv + ([] if cache.shared_kv is None else [cache.shared_kv])
 
 
-def lm_serve(dev, card: str, label: str, name: str, cfg, params, counters) -> None:
-    """Phase 19's (and 20's) serving run of one model: prefill SERVE_B x
-    SERVE_S random tokens (a VLM's first num_patches positions random patch
-    rows), pad the cache, SERVE_STEPS greedy decode
+def lm_serve(dev, card: str, label: str, name: str, cfg, params, counters,
+             serve_s: int = SERVE_S, serve_steps: int = SERVE_STEPS) -> None:
+    """Phase 19's (and 20's, 21's) serving run of one model: prefill SERVE_B
+    x ``serve_s`` random tokens (a VLM's first num_patches positions random
+    patch rows; an audio model's encoder_seq random frames), pad the cache,
+    ``serve_steps`` greedy decode
     steps with the bf16 K/V cache (a Mamba cache stays fp32; tokens kept on
     the card, one readback), one profiled step, and the decode-after-prefill
     check (the reference's ``rel < 2e-3``) held with the attention
@@ -2125,17 +2174,23 @@ def lm_serve(dev, card: str, label: str, name: str, cfg, params, counters) -> No
     import torch
     from repro_torch.core import mf
     from repro_torch.models import lm
-    opts = lm.TrainOptions(loss="softmax", remat="none", attn_chunk=min(1024, SERVE_S))
-    tokens = torch.randint(0, cfg.vocab, (SERVE_B, SERVE_S + 1),
+    opts = lm.TrainOptions(loss="softmax", remat="none", attn_chunk=min(1024, serve_s))
+    tokens = torch.randint(0, cfg.vocab, (SERVE_B, serve_s + 1),
                            generator=mf.generator(19, dev), device=dev)
-    prompt, nxt = tokens[:, :SERVE_S], tokens[:, SERVE_S:]
+    prompt, nxt = tokens[:, :serve_s], tokens[:, serve_s:]
     extra = {}
-    patches = cfg.family == "vlm"
+    patches, audio = cfg.family == "vlm", cfg.family == "audio"
     if patches:
         extra["patches"] = 0.1 * torch.randn(
             (SERVE_B, cfg.num_patches, cfg.d_model), generator=mf.generator(20, dev),
             device=dev)
-    _, warm = lm.prefill(params, {"tokens": prompt[:, :16]}, cfg, opts)   # warm-up
+    if audio:
+        extra["frames"] = 0.1 * torch.randn(
+            (SERVE_B, cfg.encoder_seq, cfg.d_model), generator=mf.generator(21, dev),
+            device=dev)
+    warm_extra = {k: v for k, v in extra.items() if k == "frames"}
+    _, warm = lm.prefill(params, {"tokens": prompt[:, :16], **warm_extra}, cfg,
+                         opts)                                           # warm-up
     lm.decode_step(params, lm.pad_cache(warm, cfg, 17), nxt, 16, cfg, opts)
     del warm
     torch.cuda.synchronize()
@@ -2147,46 +2202,54 @@ def lm_serve(dev, card: str, label: str, name: str, cfg, params, counters) -> No
     logits, cache = lm.prefill(params, {"tokens": prompt, **extra}, cfg, opts)
     torch.cuda.synchronize()
     t_prefill = time.perf_counter() - t0
-    cache = lm.pad_cache(cache, cfg, SERVE_S + SERVE_STEPS + 1)   # +1: the profiled step
+    cache = lm.pad_cache(cache, cfg, serve_s + serve_steps + 1)   # +1: the profiled step
     members = kv_members(cache)
     mamba = () if cache.mamba is None else tuple(cache.mamba)
+    cross = () if cache.cross_kv is None else tuple(cache.cross_kv)
     state_elems = sum(t.numel() for t in mamba)
+    cross_bytes = sum(t.numel() * t.element_size() for t in cross)
     cache_gb = (sum(2 * m.k.numel() * m.k.element_size() for m in members)
-                + sum(t.numel() * t.element_size() for t in mamba)) / 1e9
+                + sum(t.numel() * t.element_size() for t in mamba) + cross_bytes) / 1e9
     row_bytes = sum(2 * m.k[:, :, 0].numel() * m.k.element_size() for m in members)
     tok = logits.argmax(-1)[:, None]
     generated = [tok]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for i in range(SERVE_STEPS):
-        step_logits, cache = lm.decode_step(params, cache, tok, SERVE_S + i, cfg, opts)
+    for i in range(serve_steps):
+        step_logits, cache = lm.decode_step(params, cache, tok, serve_s + i, cfg, opts)
         tok = step_logits[:, 0].argmax(-1)[:, None]
         generated.append(tok)
     out = torch.cat(generated, dim=1).cpu()            # the one readback
-    t_step = (time.perf_counter() - t0) / SERVE_STEPS
+    t_step = (time.perf_counter() - t0) / serve_steps
     launches = {c.name: c.count() for c in counters}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     for kv in members:
-        assert kv.k.dtype == torch.bfloat16 and kv.k.shape[2] == SERVE_S + SERVE_STEPS + 1
+        assert kv.k.dtype == torch.bfloat16 and kv.k.shape[2] == serve_s + serve_steps + 1
     assert all(t.dtype == torch.float32 for t in mamba)       # as the reference keeps it
+    assert all(t.dtype == torch.bfloat16 and t.shape == (
+        cfg.n_layers, SERVE_B, cfg.encoder_seq, cfg.n_kv_heads, cfg.head_dim)
+        for t in cross)
     assert all(v == 0 for v in launches.values()), launches
-    assert out.shape == (SERVE_B, SERVE_STEPS + 1)
+    assert out.shape == (SERVE_B, serve_steps + 1)
     assert 0 <= int(out.min()) and int(out.max()) < cfg.vocab
     assert bool(torch.isfinite(step_logits).all()) and bool(torch.isfinite(logits).all())
-    pos = SERVE_S + SERVE_STEPS
-    b_ms, b_by = decode_bound(params, cfg, pos, row_bytes, state_elems)
+    pos = serve_s + serve_steps
+    b_ms, b_by = decode_bound(params, cfg, pos, row_bytes, state_elems, cross_bytes)
     n_params = sum(x.numel() for x in _leaves(params))
-    kinds = ", ".join(k for k, on in (("bf16 K/V", members), ("fp32 Mamba state", mamba))
-                      if on)
+    kinds = ", ".join(k for k, on in (("bf16 K/V", members), ("fp32 Mamba state", mamba),
+                                      ("the bf16 encoder K/V of %d frames" % cfg.encoder_seq,
+                                       cross)) if on)
     print(f"[{label} serve] {name} ({cfg.family}, {cfg.n_layers} layers, d={cfg.d_model}, "
           f"{cfg.n_heads}/{cfg.n_kv_heads} heads, vocab {cfg.vocab}, {n_params} "
-          f"parameters, fp32): prefill {SERVE_B} x {SERVE_S} tokens"
-          f"{' (the first %d patch rows)' % cfg.num_patches if patches else ''} in "
-          f"{1e3 * t_prefill:.1f} ms ({SERVE_B * SERVE_S / t_prefill:.0f} tokens/s); "
-          f"{SERVE_STEPS} greedy decode steps at positions {SERVE_S}..{pos - 1} with a "
+          f"parameters, fp32): prefill {SERVE_B} x {serve_s} tokens"
+          f"{' (the first %d patch rows)' % cfg.num_patches if patches else ''}"
+          f"{' after encoding %d frames' % cfg.encoder_seq if audio else ''} in "
+          f"{1e3 * t_prefill:.1f} ms ({SERVE_B * serve_s / t_prefill:.0f} tokens/s); "
+          f"{serve_steps} greedy decode steps at positions {serve_s}..{pos - 1} with a "
           f"cache of {kinds} ({cache_gb:.3f} GB): {1e3 * t_step:.3f} ms a step, "
           f"{SERVE_B / t_step:.1f} tokens/s; a step's bound {b_ms:.3f} ms ({b_by}: "
-          f"every weight and cached row read once; {100 * b_ms / (1e3 * t_step):.1f}% "
+          f"every weight a step reads and every cached row read once; "
+          f"{100 * b_ms / (1e3 * t_step):.1f}% "
           f"of it); peak device memory {peak_gb:.2f} GB; launches of the port's "
           f"kernels {launches} (serving runs none, as the reference runs no Pallas "
           f"kernel there); ids[0][:8] {out[0, :8].tolist()} | {card}", flush=True)
@@ -2203,21 +2266,21 @@ def lm_serve(dev, card: str, label: str, name: str, cfg, params, counters) -> No
         cfg.capacity_factor, cfg.moe_experts / max(cfg.moe_top_k, 1)))
 
     def decode_rel(dtype, n: int = 2) -> float:
-        """rel of the decode logits at position SERVE_S (a cache of
-        ``dtype`` from a prefill of the first SERVE_S tokens) against a
-        prefill of SERVE_S + 1 tokens, on the first ``n`` prompts."""
+        """rel of the decode logits at position serve_s (a cache of
+        ``dtype`` from a prefill of the first serve_s tokens) against a
+        prefill of serve_s + 1 tokens, on the first ``n`` prompts."""
         o = dataclasses.replace(opts, cache_dtype=dtype)
         ex = {k: v[:n] for k, v in extra.items()}
         want, _ = lm.prefill(params, {"tokens": tokens[:n], **ex}, cfg_check, o)
         _, c = lm.prefill(params, {"tokens": prompt[:n], **ex}, cfg_check, o)
-        dl, _ = lm.decode_step(params, lm.pad_cache(c, cfg, SERVE_S + 1), nxt[:n],
-                               SERVE_S, cfg_check, o)
+        dl, _ = lm.decode_step(params, lm.pad_cache(c, cfg, serve_s + 1), nxt[:n],
+                               serve_s, cfg_check, o)
         return (want - dl[:, 0]).abs().max().item() / (want.abs().max().item() + 1e-9)
 
     if cfg.family == "ssm":                # no attention: held as it is
         rel32, rel16 = decode_rel(torch.float32), decode_rel(torch.bfloat16)
-        print(f"[{label} check] decode logits at position {SERVE_S} against prefill "
-              f"of {SERVE_S + 1} tokens (2 prompts, fp32 weights, no attention, no "
+        print(f"[{label} check] decode logits at position {serve_s} against prefill "
+              f"of {serve_s + 1} tokens (2 prompts, fp32 weights, no attention, no "
               f"conditioning): rel {rel32:.3e} with an fp32 Mamba cache (< "
               f"{DECODE_REL:g} required); {rel16:.3e} with the serving options' "
               f"bf16 cache_dtype, which the Mamba cache does not take | {card}",
@@ -2227,8 +2290,8 @@ def lm_serve(dev, card: str, label: str, name: str, cfg, params, counters) -> No
     rel_init = decode_rel(torch.float32)
     condition_attention_(params, cfg)
     rel32, rel16 = decode_rel(torch.float32), decode_rel(torch.bfloat16)
-    print(f"[{label} check] decode logits at position {SERVE_S} against prefill "
-          f"of {SERVE_S + 1} tokens (2 prompts, fp32 weights, capacity factor "
+    print(f"[{label} check] decode logits at position {serve_s} against prefill "
+          f"of {serve_s + 1} tokens (2 prompts, fp32 weights, capacity factor "
           f"{cfg_check.capacity_factor:g}): rel {rel32:.3e} "
           f"with an fp32 cache (< {DECODE_REL:g} required) and {rel16:.3e} with "
           f"the bf16 cache, with the attention projections at 1/sqrt of their "
@@ -2354,92 +2417,212 @@ FAMILY_RUNS = (("20a", "mamba2-370m", 16, 8, 1024),
                ("20c", "qwen2-vl-2b", 8, 4, 512))
 
 
-def families_phase(dev, card: str, flush, counters) -> list:
-    """Phase 20: mamba2-370m (``ssm``), zamba2-2.7b (``hybrid``) and
-    qwen2-vl-2b (``vlm``, with the batch's 256 patch rows from
-    ``lm_batch(extras=)``) at full width and depth: ``train_lm`` with the
-    HEAT head on ``pallas`` (AdamW, ``remat="full"``, one fixed batch:
-    finite losses, the fixed-batch loss falling, kernels #3 and #4 launched
-    once a step and nothing else, peak memory), #3 and #4 against their
-    plain versions on the trained head's inputs, then the serving run of
-    phase 19 on the trained weights.  Returns the kernels line's entries
-    of #3 and #4 at the three head shapes."""
+def lm_train_run(dev, card: str, flush, counters, label: str, arch: str, steps: int,
+                 b: int, s: int, optimizer: str = "adamw", condition: bool = False):
+    """One model of phases 20 and 21 at full width and depth: ``train_lm``
+    with the HEAT head on ``pallas`` (``optimizer`` at lr 1e-3,
+    ``remat="full"``, one fixed batch of b x s tokens with a VLM's patch
+    rows or an audio model's frames from ``lm_batch(extras=)``: finite
+    losses, the fixed-batch loss falling, kernels #3 and #4 launched once a
+    step and nothing else, peak memory and its parts), then #3 and #4
+    against their plain versions on the trained head's inputs.  With
+    ``condition`` the run starts from ``train_lm``'s init with the
+    attention conditioned (:func:`condition_attention_`) and runs
+    ``train_lm``'s window body on it (``trainer.lm_window_body`` under an
+    ``EpochExecutor``), after a probe of one step at the unconditioned init
+    (:func:`init_step_probe`).  Returns
+    ``(cfg, trained params, the kernels line's entries)``."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import lm
     from repro_torch.optim.optimizers import get_optimizer
     from repro_torch.train import trainer
+    from repro_torch.train.checkpoint import named_leaves
+    base = get_config(arch)
+    cfg = dataclasses.replace(base, heat=dataclasses.replace(base.heat, backend="pallas"))
+    extras, extra_rows = None, ""
+    if cfg.family in ("vlm", "audio"):
+        name, rows = (("frames", cfg.encoder_seq) if cfg.family == "audio"
+                      else ("patches", cfg.num_patches))
+        extras = {name: ((b, rows, cfg.d_model), torch.float32)}
+        extra_rows = f", {rows} {'frames' if name == 'frames' else 'patch rows'} a sequence"
+    opts = lm.TrainOptions(loss="heat", remat="full", attn_chunk=s)
+    tcfg = trainer.TrainerConfig(steps=steps, lr=LM_LR, batch_size=b, seq_len=s,
+                                 optimizer=optimizer, log_every=0,
+                                 steps_per_dispatch=steps, fixed_batch=True)
+    if condition:
+        init_step_probe(dev, card, label, cfg, opts, tcfg, extras)
+    init = trainer.init_lm_state(tcfg.seed, cfg, opts, get_optimizer(optimizer),
+                                 device=dev)                  # train_lm's init
+    if condition:
+        condition_attention_(init.params, cfg)
+    tile0 = init.tile
+    eval_before = lm_eval_loss(init.params, cfg, opts, tile0, dev, b, s, extras)
+    if not condition:
+        del init
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters:
+        c.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if condition:
+        state, losses, _ = trainer.run_window(trainer.EpochExecutor(
+            trainer.lm_window_body(cfg, opts, tcfg, get_optimizer(optimizer), extras,
+                                   dev), steps), init, 0, steps)
+        del init
+    else:
+        state, losses = trainer.train_lm(cfg, opts, tcfg, extras, device=dev,
+                                         log=lambda *_: None)
+    torch.cuda.synchronize()
+    t_train = time.perf_counter() - t0
+    launches = {c.name: c.count() for c in counters}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    assert len(losses) == steps and all(math.isfinite(x) for x in losses), losses
+    want = {c.name: 0 for c in counters}
+    want.update(ccl_stats_shared=steps, ccl_bwd_shared=steps)
+    assert launches == want, launches
+    eval_after = lm_eval_loss(state.params, cfg, opts, tile0, dev, b, s, extras)
+    assert eval_after < eval_before, \
+        f"{arch}: loss did not fall: {eval_before} -> {eval_after}"
+    n_params = sum(x.numel() for x in _leaves(state.params))
+    param_gb = 4 * n_params / 1e9
+    opt_gb = sum(x.numel() * x.element_size()
+                 for _, x in named_leaves(state.opt_state)) / 1e9
+    print(f"[{label} train] {arch}{' (attention conditioned)' if condition else ''} "
+          f"({cfg.family}, {cfg.n_layers} layers"
+          f"{' + %d encoder layers' % cfg.encoder_layers if cfg.encoder_layers else ''}, "
+          f"d={cfg.d_model}, vocab {cfg.vocab}, {n_params} parameters{extra_rows}) "
+          f"batch {b} x {s}, {optimizer} lr {LM_LR}, remat full, HEAT head pallas (n="
+          f"{cfg.heat.num_negatives}, tile {cfg.heat.tile_size}), one fixed batch: "
+          f"{steps} steps, losses {[round(x, 4) for x in losses]}; fixed-batch "
+          f"loss {eval_before:.6f} -> {eval_after:.6f}; launches {launches}; "
+          f"{1e3 * t_train / steps:.1f} ms a step including init; peak device "
+          f"memory {peak_gb:.2f} GB: parameters {param_gb:.2f}, gradients "
+          f"{param_gb:.2f}, {optimizer} state {opt_gb:.3f}, the rest "
+          f"{peak_gb - 2 * param_gb - opt_gb:.2f} | {card}", flush=True)
+    u, p, negs, _ = lm_head_inputs(state.params, cfg, opts, tile0, dev, b, s, extras)
+    entries = []
+    for kd in shared_ccl_entries(u, p, negs, flush):
+        kd.update(launches=launches[kd["name"]], phase=label,
+                  shape=f"T={u.shape[0]}, K={u.shape[1]}, n={negs.shape[0]}")
+        print(f"[{label} kernel] {kd['name']} on {arch}'s head inputs "
+              f"({kd['shape']}): same bits on two calls; max abs err "
+              f"{kd['max_abs_err']:.3e} (tol {ATOL:g} + {RTOL:g}*|plain|); "
+              f"{1e3 * kd['ms']:.1f} us kernel, {1e3 * kd['plain_ms']:.1f} us "
+              f"plain, bound {1e3 * kd['bound_ms']:.1f} us ({kd['bound_by']}; "
+              f"{bound_share(kd)}), library "
+              + ("none" if kd["library_ms"] is None else
+                 "%.1f us (torch.matmul(u, negs.T) for un alone)"
+                 % (1e3 * kd["library_ms"]))
+              + f"; {kd['launches']} launches in the run | {card}", flush=True)
+        entries.append(kd)
+    params = state.params
+    del state, u, p, negs
+    torch.cuda.empty_cache()
+    return cfg, params, entries
+
+
+def families_phase(dev, card: str, flush, counters) -> list:
+    """Phase 20: mamba2-370m (``ssm``), zamba2-2.7b (``hybrid``) and
+    qwen2-vl-2b (``vlm``, with the batch's 256 patch rows from
+    ``lm_batch(extras=)``) at full width and depth, each through
+    :func:`lm_train_run` (AdamW) and then the serving run of phase 19 on
+    the trained weights.  Returns the kernels line's entries of #3 and #4
+    at the three head shapes."""
+    import torch
     t_phase = time.perf_counter()
     entries = []
     for label, arch, steps, b, s in FAMILY_RUNS:
         t_run = time.perf_counter()
-        base = get_config(arch)
-        cfg = dataclasses.replace(base, heat=dataclasses.replace(base.heat,
-                                                                 backend="pallas"))
-        extras = ({"patches": ((b, cfg.num_patches, cfg.d_model), torch.float32)}
-                  if cfg.family == "vlm" else None)
-        opts = lm.TrainOptions(loss="heat", remat="full", attn_chunk=s)
-        tcfg = trainer.TrainerConfig(steps=steps, lr=LM_LR, batch_size=b, seq_len=s,
-                                     optimizer="adamw", log_every=0,
-                                     steps_per_dispatch=steps, fixed_batch=True)
-        init = trainer.init_lm_state(tcfg.seed, cfg, opts, get_optimizer("adamw"),
-                                     device=dev)                  # train_lm's init
-        tile0 = init.tile
-        eval_before = lm_eval_loss(init.params, cfg, opts, tile0, dev, b, s, extras)
-        del init
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        for c in counters:
-            c.reset()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, losses = trainer.train_lm(cfg, opts, tcfg, extras, device=dev,
-                                         log=lambda *_: None)
-        torch.cuda.synchronize()
-        t_train = time.perf_counter() - t0
-        launches = {c.name: c.count() for c in counters}
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        assert len(losses) == steps and all(math.isfinite(x) for x in losses), losses
-        want = {c.name: 0 for c in counters}
-        want.update(ccl_stats_shared=steps, ccl_bwd_shared=steps)
-        assert launches == want, launches
-        eval_after = lm_eval_loss(state.params, cfg, opts, tile0, dev, b, s, extras)
-        assert eval_after < eval_before, \
-            f"{arch}: loss did not fall: {eval_before} -> {eval_after}"
-        n_params = sum(x.numel() for x in _leaves(state.params))
-        print(f"[{label} train] {arch} ({cfg.family}, {cfg.n_layers} layers, d="
-              f"{cfg.d_model}, vocab {cfg.vocab}, {n_params} parameters"
-              f"{', %d patch rows a sequence' % cfg.num_patches if extras else ''}) "
-              f"batch {b} x {s}, AdamW lr {LM_LR}, remat full, HEAT head pallas (n="
-              f"{cfg.heat.num_negatives}, tile {cfg.heat.tile_size}), one fixed batch: "
-              f"{steps} steps, losses {[round(x, 4) for x in losses]}; fixed-batch "
-              f"loss {eval_before:.6f} -> {eval_after:.6f}; launches {launches}; "
-              f"{1e3 * t_train / steps:.1f} ms a step including init; peak device "
-              f"memory {peak_gb:.2f} GB | {card}", flush=True)
-        u, p, negs, _ = lm_head_inputs(state.params, cfg, opts, tile0, dev, b, s, extras)
-        for kd in shared_ccl_entries(u, p, negs, flush):
-            kd.update(launches=launches[kd["name"]], phase=label,
-                      shape=f"T={u.shape[0]}, K={u.shape[1]}, n={negs.shape[0]}")
-            print(f"[{label} kernel] {kd['name']} on {arch}'s head inputs "
-                  f"({kd['shape']}): same bits on two calls; max abs err "
-                  f"{kd['max_abs_err']:.3e} (tol {ATOL:g} + {RTOL:g}*|plain|); "
-                  f"{1e3 * kd['ms']:.1f} us kernel, {1e3 * kd['plain_ms']:.1f} us "
-                  f"plain, bound {1e3 * kd['bound_ms']:.1f} us ({kd['bound_by']}; "
-                  f"{bound_share(kd)}), library "
-                  + ("none" if kd["library_ms"] is None else
-                     "%.1f us (torch.matmul(u, negs.T) for un alone)"
-                     % (1e3 * kd["library_ms"]))
-                  + f"; {kd['launches']} launches in the run | {card}", flush=True)
-            entries.append(kd)
-        params = state.params
-        del state, u, p, negs
-        torch.cuda.empty_cache()
+        cfg, params, kds = lm_train_run(dev, card, flush, counters, label, arch,
+                                        steps, b, s)
+        entries += kds
         lm_serve(dev, card, label, f"{arch} (trained)", cfg, params, counters)
         del params
         torch.cuda.empty_cache()
         print(f"[{label} time] {arch}: {time.perf_counter() - t_run:.1f} s | {card}",
               flush=True)
     print(f"[20 families] phase 20 took {time.perf_counter() - t_phase:.1f} s | {card}",
+          flush=True)
+    return entries
+
+
+def init_step_probe(dev, card: str, label: str, cfg, opts, tcfg, extras) -> None:
+    """One step of ``tcfg.optimizer`` from ``train_lm``'s own init (the
+    reference's scales), printed and not held: the largest gradient of
+    each leaf and the parameter leaves left non-finite.  At granite-8b's
+    init the gradients reach 1e19-1e21, Adafactor's squares overflow fp32
+    and its factored leaves turn NaN, in the reference's arithmetic as in
+    the port's (ROADMAP.md C.8)."""
+    import torch
+    from repro_torch.models.params import tree_items
+    from repro_torch.optim.optimizers import Optimizer, get_optimizer
+    from repro_torch.train import trainer
+    opt, seen = get_optimizer(tcfg.optimizer), {}
+
+    def update(grads, state, params, lr):
+        seen.update((n, g.abs().max().item()) for n, g in tree_items(grads))
+        return opt.update(grads, state, params, lr)
+    probe = Optimizer(opt.name, opt.init, update)
+    state = trainer.init_lm_state(tcfg.seed, cfg, opts, probe, device=dev)
+    state, losses, _ = trainer.run_window(trainer.EpochExecutor(
+        trainer.lm_window_body(cfg, opts, tcfg, probe, extras, dev), 1), state, 0, 1)
+    bad = [n for n, p in tree_items(state.params) if not bool(torch.isfinite(p).all())]
+    top = sorted(seen.items(), key=lambda kv: -kv[1])[:3]
+    print(f"[{label} probe] one {tcfg.optimizer} step at {cfg.name}'s own init (the "
+          f"reference's scales): loss {losses[0]:.4f}; largest gradients "
+          + ", ".join(f"{n} {v:.3e}" for n, v in top)
+          + f" (fp32 squares overflow above 1.8e19); parameter leaves non-finite "
+          f"after the update: {len(bad)} of {len(seen)} {bad}; printed, not held "
+          f"(ROADMAP.md C.8); the run below starts from the same init with the "
+          f"attention conditioned | {card}", flush=True)
+    del state
+    torch.cuda.empty_cache()
+
+
+#: phase 21a: whisper-medium at full width and depth, trained with AdamW for
+#: WHISPER_STEPS steps on one fixed batch of SERVE_B x WHISPER_S tokens
+#: (Whisper's decoder context) and its encoder_seq frames, then served with
+#: prompts of WHISPER_PROMPT tokens and WHISPER_DECODE greedy steps (the
+#: prompt and the steps fill the context).
+WHISPER_STEPS, WHISPER_S, WHISPER_PROMPT, WHISPER_DECODE = 8, 448, 384, 64
+#: phase 21b: granite-8b under Adafactor, GRANITE_STEPS steps on one fixed
+#: batch of GRANITE_B x GRANITE_S tokens.
+GRANITE_STEPS, GRANITE_B, GRANITE_S = 4, 2, 512
+
+
+def audio_phase(dev, card: str, flush, counters) -> list:
+    """Phase 21: (a) whisper-medium (``audio``: 24 encoder layers over 1,500
+    frames, 24 decoder layers with cross-attention) through
+    :func:`lm_train_run` (AdamW) and then served as phase 19 serves, with
+    the encoder's K/V cached in bf16 and the cross-attention conditioned
+    for the decode-after-prefill check; (b) granite-8b trained under
+    Adafactor on the card, with its peak memory and its parts (the phase
+    raises if it does not fit).  Returns the kernels line's entries of #3
+    and #4 at both head shapes."""
+    import torch
+    t_phase = time.perf_counter()
+    t_run = time.perf_counter()
+    cfg, params, entries = lm_train_run(dev, card, flush, counters, "21a",
+                                        "whisper-medium", WHISPER_STEPS, SERVE_B,
+                                        WHISPER_S)
+    lm_serve(dev, card, "21a", "whisper-medium (trained)", cfg, params, counters,
+             serve_s=WHISPER_PROMPT, serve_steps=WHISPER_DECODE)
+    del params
+    torch.cuda.empty_cache()
+    print(f"[21a time] whisper-medium: {time.perf_counter() - t_run:.1f} s | {card}",
+          flush=True)
+    t_run = time.perf_counter()
+    _, params, kds = lm_train_run(dev, card, flush, counters, "21b", "granite-8b",
+                                  GRANITE_STEPS, GRANITE_B, GRANITE_S,
+                                  optimizer="adafactor", condition=True)
+    entries += kds
+    del params
+    torch.cuda.empty_cache()
+    print(f"[21b time] granite-8b under adafactor: {time.perf_counter() - t_run:.1f} s "
+          f"| {card}", flush=True)
+    print(f"[21 audio] phase 21 took {time.perf_counter() - t_phase:.1f} s | {card}",
           flush=True)
     return entries
 
@@ -2814,8 +2997,10 @@ def main() -> int:
     lm_serving_phase(dev, card, flush, counters)
     torch.cuda.empty_cache()
     kernels += families_phase(dev, card, flush, counters)
+    torch.cuda.empty_cache()
+    kernels += audio_phase(dev, card, flush, counters)
 
-    print(f"[total] all 20 phases in {time.perf_counter() - t_start:.1f} s (phase 18: "
+    print(f"[total] all 21 phases in {time.perf_counter() - t_start:.1f} s (phase 18: "
           f"{t_shard:.1f} s) | {card}", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -2,10 +2,9 @@
 LM architecture registry.
 
 ``get_config(name)`` accepts the reference's architecture ids (hyphenated)
-or module names, as ``src/repro/configs/__init__.py`` does.  The dense, MoE,
-SSM, hybrid and VLM architectures are registered (copies of the reference's
-configs, field for field); the audio one raises, naming the slice of the
-port that brings its family.
+or module names, as ``src/repro/configs/__init__.py`` does.  Every
+architecture of the reference is registered (copies of its configs, field
+for field).
 """
 from __future__ import annotations
 
@@ -21,12 +20,8 @@ ARCH_MODULES = {
     "granite-8b": "granite_8b",
     "smollm-360m": "smollm_360m",
     "command-r-35b": "command_r_35b",
+    "whisper-medium": "whisper_medium",
     "qwen2-vl-2b": "qwen2_vl_2b",
-}
-
-#: the reference's other architectures, id -> the family the port still lacks.
-WAITING = {
-    "whisper-medium": "audio",
 }
 
 ARCH_NAMES = list(ARCH_MODULES)
@@ -35,14 +30,9 @@ ARCH_NAMES = list(ARCH_MODULES)
 def get_config(name: str):
     """The named architecture's ``CONFIG`` (an
     :class:`~repro_torch.models.config.ArchConfig`); raises ``ValueError``
-    for an architecture the port does not train yet."""
-    key = name if name in ARCH_MODULES or name in WAITING else next(
+    for an unknown name."""
+    key = name if name in ARCH_MODULES else next(
         (k for k, m in ARCH_MODULES.items() if m == name), name)
-    if key in WAITING:
-        from repro_torch.models.lm import WAITING_FAMILIES
-        raise ValueError(
-            f"architecture {name!r} ({WAITING[key]}) waits for "
-            f"{WAITING_FAMILIES[WAITING[key]]}")
     if key not in ARCH_MODULES:
         raise ValueError(f"unknown architecture {name!r}; available: "
                          f"{ARCH_NAMES}")

@@ -17,6 +17,8 @@ reference's ``jax.tree_util`` paths of ``LMTrainState``::
 
     params/<tree path>                        e.g. params/blocks/attn/wq
     opt_state/moments/<tree path>/{mu,nu}     AdamW's moments
+    opt_state/moments/<tree path>/{vr,vc}     Adafactor's factored moments
+    opt_state/moments/<tree path>/v           ... of a leaf not factored
     opt_state/moments/<tree path>             SGD with momentum
     opt_state/count                           () int32
     tile/tile_ids, tile/step                  the id-only vocab tile, if any
@@ -25,13 +27,18 @@ reference's ``jax.tree_util`` paths of ``LMTrainState``::
 Every LM family the port runs carries over by these names: an MoE layer's
 leaves are ``params/blocks/moe/{router,w_gate,w_up,w_down}``, an interleaved
 MoE stack's ``params/blocks/dense/...`` and ``params/blocks/moe_blk/...``, a
-Mamba stack's ``params/blocks/{ln,mamba/...}`` and a hybrid's shared block
-``params/shared/{ln1,ln2,attn/...,mlp/...}``.  A decode cache
+Mamba stack's ``params/blocks/{ln,mamba/...}``, a hybrid's shared block
+``params/shared/{ln1,ln2,attn/...,mlp/...}`` and the audio model's encoder
+``params/encoder/...``, ``params/enc_norm`` and decoder cross-attention
+``params/blocks/{ln_x,cross/...}``.  A decode cache
 (``models/lm.py::DecodeCache``) is named as the reference's flattens:
 ``kv/k``, ``kv/v``, or for the interleaved MoE layout ``kv/0/{k,v}`` (the
 dense layers) and ``kv/1/{k,v}`` (the MoE layers); a Mamba cache
-``mamba/conv``, ``mamba/state``, and a hybrid's shared K/V
-``shared_kv/{k,v}``.
+``mamba/conv``, ``mamba/state``, a hybrid's shared K/V
+``shared_kv/{k,v}``, and the audio family's encoder K/V ``cross_kv/0`` and
+``cross_kv/1`` as the reference's prefill leaves them (a plain pair), or
+``cross_kv/{k,v}`` as its ``cache_defs`` does (a ``KVCache``); each form
+comes back as it went.
 """
 from __future__ import annotations
 
@@ -45,7 +52,7 @@ from repro_torch.models.layers import KVCache
 from repro_torch.models.lm import DecodeCache
 from repro_torch.models.ssm import MambaCache
 from repro_torch.models.params import tree_from_items
-from repro_torch.optim.optimizers import AdamMoments, OptState
+from repro_torch.optim.optimizers import AdamMoments, FactoredMoment, OptState
 from repro_torch.optim.quantization import QuantizedTable
 from repro_torch.train.checkpoint import leaf_to_numpy, named_leaves
 from repro_torch.train.trainer import LMTrainState
@@ -101,12 +108,17 @@ def _subtree(tree: dict, prefix: str, device):
 
 
 def _moments(node):
-    """Turn ``{"mu": ..., "nu": ...}`` leaf dicts into ``AdamMoments``."""
-    if isinstance(node, dict):
-        if set(node) == {"mu", "nu"} and not isinstance(node["mu"], dict):
+    """Turn the leaf dicts of a moment tree into their bundles:
+    ``{mu, nu}`` into ``AdamMoments``, ``{vr, vc}`` and ``{v}`` into
+    ``FactoredMoment`` (its None fields absent from the names)."""
+    if not isinstance(node, dict):
+        return node
+    if not any(isinstance(v, dict) for v in node.values()):
+        if set(node) == {"mu", "nu"}:
             return AdamMoments(node["mu"], node["nu"])
-        return {k: _moments(v) for k, v in node.items()}
-    return node
+        if set(node) in ({"vr", "vc"}, {"v"}):
+            return FactoredMoment(node.get("vr"), node.get("vc"), node.get("v"))
+    return {k: _moments(v) for k, v in node.items()}
 
 
 def lm_state_from_numpy(tree: dict, device="cpu") -> LMTrainState:
@@ -155,13 +167,19 @@ def decode_cache_from_numpy(tree: dict, device="cpu") -> DecodeCache:
         return KVCache(_tensor_from_numpy(tree[f"{prefix}/k"], device),
                        _tensor_from_numpy(tree[f"{prefix}/v"], device))
 
-    mamba = None
+    mamba = cross = None
     if "mamba/conv" in tree:
         mamba = MambaCache(_tensor_from_numpy(tree["mamba/conv"], device),
                            _tensor_from_numpy(tree["mamba/state"], device))
+    if "cross_kv/0" in tree:
+        cross = tuple(_tensor_from_numpy(tree[f"cross_kv/{i}"], device)
+                      for i in range(2))
+    elif "cross_kv/k" in tree:
+        cross = kv("cross_kv")
     if "kv/0/k" in tree:
         return DecodeCache(kv=(kv("kv/0"), kv("kv/1")))
-    return DecodeCache(kv=kv("kv"), mamba=mamba, shared_kv=kv("shared_kv"))
+    return DecodeCache(kv=kv("kv"), mamba=mamba, shared_kv=kv("shared_kv"),
+                       cross_kv=cross)
 
 
 def decode_cache_to_numpy(cache: DecodeCache) -> dict:
@@ -184,4 +202,8 @@ def decode_cache_to_numpy(cache: DecodeCache) -> dict:
     if cache.shared_kv is not None:
         out["shared_kv/k"], out["shared_kv/v"] = (arr(cache.shared_kv.k),
                                                   arr(cache.shared_kv.v))
+    if cache.cross_kv is not None:
+        names = ("k", "v") if isinstance(cache.cross_kv, KVCache) else ("0", "1")
+        for n, t in zip(names, cache.cross_kv):
+            out[f"cross_kv/{n}"] = arr(t)
     return out

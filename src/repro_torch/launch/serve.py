@@ -10,12 +10,13 @@ recommendation serving.
     PYTHONPATH=src python -m repro_torch.launch.serve --mf --pruner tile \\
         --expand-tiles 4 --max-batch 32 --max-wait-ms 2      # on the card
 
-Without ``--mf`` it serves the LM named by ``--arch`` (a dense, MoE, SSM,
-hybrid or VLM architecture) at its reduced size, as the reference does (its
+Without ``--mf`` it serves the LM named by ``--arch`` (any architecture of
+``configs/``) at its reduced size, as the reference does (its
 ``--reduced`` cannot be switched off): random parameters from key 0, a
 random prompt of ``--batch`` x ``--prompt-len`` tokens from key 1 (a VLM's
-first ``num_patches`` positions zero patch embeddings, as the reference
-feeds them), one ``prefill``, the cache
+first ``num_patches`` positions zero patch embeddings, an audio model's
+``encoder_seq`` frames zeros, as the reference feeds them), one
+``prefill``, the cache
 padded to the prompt plus ``--decode-steps`` positions, then greedy
 ``decode_step``s whose tokens stay on the device until one readback at the
 end.  It prints the reference's three lines: prefill ms, decode ms per
@@ -160,6 +161,9 @@ def serve_lm(args, device) -> None:
     batch = {"tokens": torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),
                                      generator=mf.generator(1, device),
                                      device=device)}
+    if cfg.family == "audio":
+        batch["frames"] = torch.zeros((args.batch, cfg.encoder_seq, cfg.d_model),
+                                      device=device)
     if cfg.family == "vlm":
         batch["patches"] = torch.zeros((args.batch, cfg.num_patches, cfg.d_model),
                                        device=device)

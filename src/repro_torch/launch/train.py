@@ -22,13 +22,14 @@ meshes shard the MF model).
         --batch 1024 --backend pallas --update-impl pallas --mesh host \\
         --mesh-data 2 --dist-backend gloo   # 2 ranks sharing one card
 
-Without ``--mf`` it trains the LM named by ``--arch`` (a dense, MoE, SSM,
-hybrid or VLM architecture; default smollm-360m) with the HEAT vocab head
-(``--loss heat``, whose engine ``--backend``/``--sampler`` select) or the
-full-softmax head; a VLM's batches carry ``num_patches`` rows of synthetic
-patch embeddings (``lm_batch(extras=)``), as the reference's do.  Runs on the
-card unless ``--device cpu`` is given; with no CUDA device it exits with an
-error instead of falling back.
+Without ``--mf`` it trains the LM named by ``--arch`` (any architecture of
+``configs/``; default smollm-360m) with the HEAT vocab head (``--loss
+heat``, whose engine ``--backend``/``--sampler`` select) or the
+full-softmax head, under ``--optimizer`` sgd, adamw or adafactor; a VLM's
+batches carry ``num_patches`` rows of synthetic patch embeddings and an
+audio model's ``encoder_seq`` frames (fp32, ``lm_batch(extras=)``), as the
+reference's do.  Runs on the card unless ``--device cpu`` is given; with no
+CUDA device it exits with an error instead of falling back.
 
 ``--mesh`` shards the MF model (``core/mf_distributed.py``): ``host`` over
 ``--mesh-data`` x ``--mesh-model`` ranks, ``data`` data-parallel over
@@ -62,7 +63,8 @@ def main(argv=None):
                     help="LM learning rate (the MF model takes its config's)")
     ap.add_argument("--loss", default="heat", choices=["heat", "softmax"])
     ap.add_argument("--remat", default="none", choices=["full", "none"])
-    ap.add_argument("--optimizer", default="adamw", choices=["sgd", "adamw"])
+    ap.add_argument("--optimizer", default="adamw",
+                    choices=["sgd", "adamw", "adafactor"])
     ap.add_argument("--grad-accum", type=int, default=1)
     ap.add_argument("--steps-per-dispatch", type=int, default=16,
                     help="steps per window; losses are read back once per "
@@ -269,10 +271,11 @@ def _train_lm(args, device, ap) -> list:
         ckpt_every=args.ckpt_every, fail_at_step=args.fail_at_step,
         steps_per_dispatch=args.steps_per_dispatch)
     extras = None
-    if cfg.family == "vlm":
+    if cfg.family in ("audio", "vlm"):
         import torch
-        extras = {"patches": ((args.batch, cfg.num_patches, cfg.d_model),
-                              torch.float32)}
+        name, rows = (("frames", cfg.encoder_seq) if cfg.family == "audio"
+                      else ("patches", cfg.num_patches))
+        extras = {name: ((args.batch, rows, cfg.d_model), torch.float32)}
     _, losses = trainer.train_lm(cfg, opts, tcfg, extras, device=device)
     return losses
 

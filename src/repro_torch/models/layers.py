@@ -1,6 +1,6 @@
 """Transformer building blocks of the train path: RMSNorm, the MLPs, RoPE
-(standard and Qwen2-VL's M-RoPE) and GQA attention — the port of
-``src/repro/models/layers.py``.
+(standard and Qwen2-VL's M-RoPE), GQA attention and the audio family's
+cross-attention — the port of ``src/repro/models/layers.py``.
 
 Everything here is plain PyTorch (``matmul``/``einsum``), as the reference
 leaves it to XLA.  The attention is the reference's
@@ -9,8 +9,8 @@ kernel sits behind ``kernels/ops.py::attention``, which the model does not
 call, as in the reference.  Layouts are the reference's: activations
 ``(B, S, H, hd)``, ``wq`` ``(d, Hq, hd)``, ``wk``/``wv`` ``(d, Hkv, hd)``,
 ``wo`` ``(Hq, hd, d)``.  The decode path's :class:`KVCache` and
-:func:`decode_attention` are here too; cross-attention waits for the audio
-family.
+:func:`decode_attention` are here too, and the cross-attention against an
+encoder's memory (:func:`encoder_kv`, :func:`cross_attn_apply`).
 
 Determinism on the card: the GQA repeat of K and V is a broadcast and a
 reshape, whose backward is a sum, where ``repeat_interleave`` would go
@@ -216,3 +216,30 @@ def attn_apply(p: dict, x: torch.Tensor, cos, sin, cfg: ArchConfig, *,
         kv = cache
         out = decode_attention(q, cache, pos)
     return torch.einsum("bshk,hkd->bsd", out, p["wo"]), kv
+
+
+def cross_attn_apply(p: dict, x: torch.Tensor, memory_kv, cfg: ArchConfig):
+    """Cross-attention of x (B, S, d) against the encoder's projected
+    memory ``memory_kv`` = (k, v), each (B, S_enc, Hkv, hd) in any dtype
+    (a decode cache's bf16 rows are cast to fp32 on every call, as the
+    reference casts them).  No mask and no RoPE; the logits and the softmax
+    in fp32 over all S_enc keys, the query heads grouped ``(Hkv, g)``."""
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    k, v = memory_kv
+    b, s, hq, hd = q.shape
+    hkv = k.shape[2]
+    g = hq // hkv
+    qg = q.reshape(b, s, hkv, g, hd).float()
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) / (hd ** 0.5)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v.float())
+    out = out.reshape(b, s, hq, hd).to(x.dtype)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+
+
+def encoder_kv(p: dict, memory: torch.Tensor):
+    """The encoder memory (B, S_enc, d) projected by a cross-attention's
+    ``wk`` and ``wv``: ``(k, v)``, each (B, S_enc, Hkv, hd)."""
+    k = torch.einsum("bsd,dhk->bshk", memory, p["wk"])
+    v = torch.einsum("bsd,dhk->bshk", memory, p["wv"])
+    return k, v

@@ -1,7 +1,7 @@
 """The language model — the port of ``src/repro/models/lm.py`` for the
-dense, MoE, SSM (Mamba2), hybrid (Zamba2) and VLM (Qwen2-VL) families:
-training, and serving by ``prefill`` then ``decode_step`` against a KV
-cache, a Mamba state cache, or both.
+dense, MoE, SSM (Mamba2), hybrid (Zamba2), VLM (Qwen2-VL) and audio
+(Whisper) families: training, and serving by ``prefill`` then
+``decode_step`` against a KV cache, a Mamba state cache, or both.
 
 Parameters are the reference's tree: nested dicts with the layers stacked on
 a leading (L, ...) axis (``blocks/attn/wq`` is (L, d, Hq, hd)), so
@@ -20,7 +20,14 @@ attention block and the shared MLP (``shared/{ln1, ln2, attn, mlp}``, no
 leading axis), whose gradient sums over its G applications; with
 ``remat="full"`` the whole group is the checkpointed unit, as in the
 reference.  The VLM stack is the dense one with M-RoPE positions and the
-batch's ``patches`` rows in place of the first token embeddings.
+batch's ``patches`` rows in place of the first token embeddings.  The audio
+model is an encoder-decoder: :func:`encode_audio` runs the batch's
+``frames`` (B, S_enc, d), precomputed frame embeddings, through a stack of
+non-causal dense blocks (``encoder``, then ``enc_norm``); each decoder block
+(``blocks``, with ``ln_x`` and ``cross``) runs its self-attention, then a
+cross-attention on the encoder memory, then its MLP.  Training and prefill
+project the memory per layer (``layers.encoder_kv``); prefill stores those
+K/V in the cache's ``cross_kv``, which decoding reads without frames.
 
 Entry points:
 
@@ -36,8 +43,7 @@ Entry points:
   in place and the query attends in fp32.
 
 ``prefill`` and ``decode_step`` run without autograd, on the card unless
-given ``device="cpu"``.  The audio family waits for a later slice
-(:data:`WAITING_FAMILIES`).
+given ``device="cpu"``.
 """
 from __future__ import annotations
 
@@ -62,6 +68,8 @@ from repro_torch.models.layers import (
     KVCache,
     attn_apply,
     attn_defs,
+    cross_attn_apply,
+    encoder_kv,
     mlp_apply,
     mlp_defs,
     rms_norm,
@@ -74,13 +82,7 @@ from repro_torch.models.params import (
     tree_items,
 )
 
-FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
-
-#: the reference's other families and the slice of the port that brings each.
-WAITING_FAMILIES = {
-    "audio": "the audio slice (cross-attention and the audio encoder; "
-             "ROADMAP.md A.6)",
-}
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,13 +107,9 @@ class TrainOptions:
 
 
 def _check_family(cfg: ArchConfig) -> None:
-    if cfg.family in FAMILIES:
-        return
-    if cfg.family in WAITING_FAMILIES:
-        raise ValueError(f"family {cfg.family!r} waits for "
-                         f"{WAITING_FAMILIES[cfg.family]}; the port runs "
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"unknown family {cfg.family!r}; available: "
                          f"{FAMILIES}")
-    raise ValueError(f"unknown family {cfg.family!r}")
 
 
 def _norm_def(n_layers: int, d: int) -> ParamDef:
@@ -171,6 +169,13 @@ def model_defs(cfg: ArchConfig) -> dict:
         if cfg.family == "hybrid":
             defs["shared"] = {"ln1": _norm_def(0, d), "ln2": _norm_def(0, d),
                               "attn": attn_defs(cfg, 0), "mlp": mlp_defs(cfg, 0)}
+    elif cfg.family == "audio":
+        defs["encoder"] = _dense_block_defs(cfg, cfg.encoder_layers)
+        defs["enc_norm"] = _norm_def(0, d)
+        dec = _dense_block_defs(cfg, cfg.n_layers)
+        dec["ln_x"] = _norm_def(cfg.n_layers, d)
+        dec["cross"] = attn_defs(cfg, cfg.n_layers)
+        defs["blocks"] = dec
     else:
         defs["blocks"] = _dense_block_defs(cfg, cfg.n_layers)
     return defs
@@ -216,15 +221,21 @@ def _rope(cfg: ArchConfig, b: int, s: int, device, start: int):
 
 def _attn_block(lp: dict, h, cos, sin, cfg: ArchConfig, opts: TrainOptions,
                 *, moe: bool, cache: Optional[KVCache] = None,
-                pos: Optional[int] = None):
-    """Pre-norm attention + (MLP | MoE) with residuals; returns ``(h, kv)``
-    (:func:`~repro_torch.models.layers.attn_apply`'s ``kv``)."""
+                pos: Optional[int] = None, memory_kv=None, causal: bool = True):
+    """Pre-norm attention [+ cross-attention on ``memory_kv``, the
+    encoder's (k, v), after ``ln_x``] + (MLP | MoE) with residuals; returns
+    ``(h, kv)`` (:func:`~repro_torch.models.layers.attn_apply`'s ``kv``).
+    ``causal=False`` is the audio encoder's self-attention."""
     a, kv = attn_apply(lp["attn"], rms_norm(h, lp["ln1"], cfg.norm_eps), cos,
-                       sin, cfg, causal=True, cache=cache, pos=pos,
+                       sin, cfg, causal=causal, cache=cache, pos=pos,
                        attn_chunk=opts.attn_chunk,
                        probs_dtype=opts.probs_dtype,
                        acc_dtype=opts.attn_acc_dtype)
     h = h + a
+    if memory_kv is not None:
+        h = h + cross_attn_apply(lp["cross"], rms_norm(h, lp["ln_x"],
+                                                       cfg.norm_eps),
+                                 memory_kv, cfg)
     hn = rms_norm(h, lp["ln2"], cfg.norm_eps)
     out = moe_mod.moe_apply(lp["moe"], hn, cfg) if moe else mlp_apply(
         lp["mlp"], hn, cfg)
@@ -308,14 +319,19 @@ def _kv_rows(cfg: ArchConfig) -> list[int]:
 
 
 def _run_stack(params: dict, h, cfg: ArchConfig, opts: TrainOptions,
-               mode: str = "train", cache=None, pos: Optional[int] = None):
+               mode: str = "train", cache=None, pos: Optional[int] = None,
+               memory=None):
     """The layer stack, then the final norm; returns ``(h, cache)``.
 
     ``mode``: ``train`` (no cache; the cache is None), ``prefill`` (every
     layer's fresh K/V collected into a new :class:`DecodeCache` in
     ``opts.cache_dtype``) or ``decode`` (h is (B, 1, d) at the host int
     ``pos``; each layer writes its K/V row into ``cache`` in place, which
-    is returned).  The SSM and hybrid stacks run in
+    is returned).  The audio family's train and prefill modes take the
+    encoder's ``memory`` (B, S_enc, d) (:func:`encode_audio`), which each
+    layer projects with its own ``cross`` weights; prefill stores those
+    K/V in ``cache_dtype`` too, and decode reads them from
+    ``cache.cross_kv``.  The SSM and hybrid stacks run in
     :func:`_run_mamba_stack`."""
     _check_family(cfg)
     if mode not in ("train", "prefill", "decode"):
@@ -326,34 +342,56 @@ def _run_stack(params: dict, h, cfg: ArchConfig, opts: TrainOptions,
         return rms_norm(h, params["final_norm"], cfg.norm_eps), new_cache
     b, s = h.shape[0], h.shape[1]
     decode = mode == "decode"
+    audio = cfg.family == "audio"
+    if audio and not decode and memory is None:
+        raise ValueError("the audio family's train and prefill modes need "
+                         "the encoder memory (encode_audio of the batch's "
+                         "frames)")
     cos, sin = _rope(cfg, b, s, h.device, pos if decode else 0)
     plan = _stack_plan(params, cfg)
 
     if mode == "train":
-        bodies = {moe: _maybe_remat(
-            lambda lp, x, moe=moe: _attn_block(lp, x, cos, sin, cfg, opts,
-                                               moe=moe)[0], opts)
-            for moe in (False, True)}
+        def block(lp, x, mem, moe):
+            mem_kv = None if mem is None else encoder_kv(lp["cross"], mem)
+            return _attn_block(lp, x, cos, sin, cfg, opts, moe=moe,
+                               memory_kv=mem_kv)[0]
+        body = _maybe_remat(block, opts)
         for lp, moe, _, _ in plan:
-            h = bodies[moe](lp, h)
+            h = body(lp, h, memory, moe)
         return rms_norm(h, params["final_norm"], cfg.norm_eps), None
 
     if decode:
         members = list(cache.kv) if _interleaved(cfg) else [cache.kv]
+        cross = cache.cross_kv
     else:
         shape = (b, s, cfg.n_kv_heads, cfg.head_dim)
         members = [KVCache(*(torch.empty((n,) + shape, dtype=opts.cache_dtype,
                                          device=h.device) for _ in range(2)))
                    for n in _kv_rows(cfg)]
+        cross = None
+        if audio:    # a plain (k, v) pair, as the reference's scan stacks it
+            shape = (cfg.n_layers, b, memory.shape[1], cfg.n_kv_heads,
+                     cfg.head_dim)
+            cross = tuple(torch.empty(shape, dtype=opts.cache_dtype,
+                                      device=h.device) for _ in range(2))
     for lp, moe, m, row in plan:
         layer_kv = KVCache(members[m].k[row], members[m].v[row])
+        mem_kv = None
+        if audio:
+            mem_kv = ((cross[0][row], cross[1][row]) if decode
+                      else encoder_kv(lp["cross"], memory))
         h, kv = _attn_block(lp, h, cos, sin, cfg, opts, moe=moe,
-                            cache=layer_kv if decode else None, pos=pos)
+                            cache=layer_kv if decode else None, pos=pos,
+                            memory_kv=mem_kv)
         if not decode:                 # prefill: collect, cast to cache_dtype
             layer_kv.k.copy_(kv.k)
             layer_kv.v.copy_(kv.v)
+            if audio:
+                cross[0][row].copy_(mem_kv[0])
+                cross[1][row].copy_(mem_kv[1])
     kv = tuple(members) if _interleaved(cfg) else members[0]
-    new_cache = cache._replace(kv=kv) if decode else DecodeCache(kv=kv)
+    new_cache = (cache._replace(kv=kv) if decode
+                 else DecodeCache(kv=kv, cross_kv=cross))
     return rms_norm(h, params["final_norm"], cfg.norm_eps), new_cache
 
 
@@ -451,15 +489,42 @@ def head_loss(params: dict, h, labels, cfg: ArchConfig, opts: TrainOptions,
     return full_softmax_loss(h, labels, table, mask), tile
 
 
+def _memory(params: dict, batch: dict, cfg: ArchConfig, opts: TrainOptions):
+    """The audio family's encoder memory of ``batch["frames"]``; None for
+    the other families."""
+    if cfg.family != "audio":
+        return None
+    return encode_audio(params, batch["frames"], cfg, opts)
+
+
 def forward_train(params: dict, batch: dict, cfg: ArchConfig,
                   opts: TrainOptions, rng: int,
                   tile: Optional[samplers.TileState] = None):
     """batch: ``tokens`` (B, S) [+ ``patches`` (B, P, d) for the VLM
-    family].  Next-token objective; returns ``(loss, new_tile)``."""
+    family, ``frames`` (B, S_enc, d) for the audio family].  Next-token
+    objective; returns ``(loss, new_tile)``."""
     labels = batch["tokens"][:, 1:]
+    memory = _memory(params, batch, cfg, opts)
     h = embed_inputs(params, batch, cfg)
-    h, _ = _run_stack(params, h, cfg, opts)
+    h, _ = _run_stack(params, h, cfg, opts, memory=memory)
     return head_loss(params, h[:, :-1], labels, cfg, opts, rng, tile)
+
+
+def encode_audio(params: dict, frames, cfg: ArchConfig, opts: TrainOptions):
+    """The audio encoder: frames (B, S_enc, d) through the ``encoder``
+    blocks (non-causal self-attention at the standard RoPE positions
+    ``0 .. S_enc - 1``, each block checkpointed under ``remat="full"``),
+    then ``enc_norm``: the memory rows the decoder's cross-attention
+    reads."""
+    b, s = frames.shape[0], frames.shape[1]
+    cos, sin = rope_cos_sin(_positions(cfg, b, s, frames.device),
+                            cfg.head_dim, cfg.rope_theta)
+    body = _maybe_remat(lambda lp, x: _attn_block(
+        lp, x, cos, sin, cfg, opts, moe=False, causal=False)[0], opts)
+    h = frames
+    for lp in _layers(params["encoder"], cfg.encoder_layers):
+        h = body(lp, h)
+    return rms_norm(h, params["enc_norm"], cfg.norm_eps)
 
 
 class DecodeCache(NamedTuple):
@@ -471,7 +536,11 @@ class DecodeCache(NamedTuple):
     ssm.MambaCache` stacked over L (conv (L, B, cw - 1, d_in + 2 g s),
     state (L, B, h, s, p)); ``shared_kv``: a hybrid's :class:`KVCache` of
     (G, B, S, Hkv, hd), one row per application of its shared block.
-    ``cross_kv`` waits for the audio family."""
+    ``cross_kv``: the audio family's encoder K/V, (L, B, S_enc, Hkv, hd)
+    each, which no decode step changes: a plain ``(k, v)`` pair from
+    :func:`prefill` (the reference's scan stacks ``encoder_kv``'s tuple)
+    and a :class:`KVCache` from :func:`cache_defs`, as in the
+    reference."""
 
     kv: Any = None
     mamba: Any = None
@@ -494,6 +563,12 @@ def cache_defs(cfg: ArchConfig, batch: int, seq: int) -> DecodeCache:
     if cfg.family == "hybrid":
         return DecodeCache(mamba=_mamba_cache_defs(cfg, cfg.n_layers, batch),
                            shared_kv=kv(num_groups(cfg)))
+    if cfg.family == "audio":
+        cross = (cfg.n_layers, batch, cfg.encoder_seq, cfg.n_kv_heads,
+                 cfg.head_dim)
+        return DecodeCache(kv=kv(cfg.n_layers),
+                           cross_kv=KVCache(ParamDef(cross, "zeros"),
+                                            ParamDef(cross, "zeros")))
     members = [kv(n) for n in _kv_rows(cfg)]
     return DecodeCache(kv=tuple(members) if _interleaved(cfg) else members[0])
 
@@ -510,7 +585,9 @@ def _mamba_cache_defs(cfg: ArchConfig, L: int, batch: int):
 def pad_cache(cache: DecodeCache, cfg: ArchConfig, max_len: int) -> DecodeCache:
     """Grow the K/V caches' sequence dimension (dim 2 of (L, B, S, Hkv, hd))
     to ``max_len`` with zero rows: the prefill -> decode handoff.  A cache
-    already that long is returned as it is; a Mamba cache is left alone."""
+    already that long is returned as it is; a Mamba cache and the audio
+    family's ``cross_kv`` (its rows are the encoder's frames) are left
+    alone."""
     def pad(a):
         extra = max_len - a.shape[2]
         return a if extra <= 0 else F.pad(a, (0, 0, 0, 0, 0, extra))
@@ -539,13 +616,16 @@ def _entry_device(params: dict, device) -> torch.device:
 def prefill(params: dict, batch: dict, cfg: ArchConfig,
             opts: TrainOptions = TrainOptions(), *, device=None):
     """Full-prompt pass: ``batch["tokens"]`` (B, S) [+ ``patches`` for the
-    VLM family] -> (last-position logits (B, V), the primed
-    :class:`DecodeCache` (S positions of K/V in ``opts.cache_dtype``)).
+    VLM family, ``frames`` for the audio family] -> (last-position logits
+    (B, V), the primed :class:`DecodeCache` (S positions of K/V in
+    ``opts.cache_dtype``; for the audio family also the encoder's K/V)).
     Runs without autograd on ``device``."""
     dev = _entry_device(params, device)
+    batch = {k: v.to(dev) for k, v in batch.items()}
     with torch.no_grad():
-        h = embed_inputs(params, {k: v.to(dev) for k, v in batch.items()}, cfg)
-        h, cache = _run_stack(params, h, cfg, opts, "prefill")
+        memory = _memory(params, batch, cfg, opts)
+        h = embed_inputs(params, batch, cfg)
+        h, cache = _run_stack(params, h, cfg, opts, "prefill", memory=memory)
         logits = h[:, -1] @ _out_table(params, cfg).T
     return logits, cache
 

@@ -1,20 +1,25 @@
-"""Optimizers over parameter trees: SGD (with optional momentum) and AdamW —
-the port of ``src/repro/optim/optimizers.py``.
+"""Optimizers over parameter trees: SGD (with optional momentum), AdamW and
+Adafactor — the port of ``src/repro/optim/optimizers.py``.
 
 Each optimizer is an ``(init, update)`` pair over nested dicts of tensors.
 The state is the reference's :class:`OptState`: a moment tree parallel to
 the parameters (``AdamMoments(mu, nu)`` at each leaf for AdamW, the momentum
-tensor for SGD with momentum, None otherwise) and a 0-d int32 step
+tensor for SGD with momentum, ``FactoredMoment(vr, vc, v)`` for Adafactor,
+None otherwise) and a 0-d int32 step
 ``count`` on the parameters' device, so the bias correction is computed on
 the device and the host never waits for it.  AdamW's arithmetic is the
 reference's, in its order: ``(m / bc1) / (sqrt(v / bc2) + eps)`` with
 ``bc = 1 - b ** count`` in fp32 — not ``torch.optim.AdamW``, which arranges
-the bias correction differently.  Adafactor waits (``get_optimizer`` raises).
+the bias correction differently.  Adafactor's is the reference's too, in
+its order, with the second moment factored by shape (:func:`_factorable`)
+and the update clipped by the RMS of the whole leaf's step; a leaf of rank
+3 or more is updated slice by slice along its leading axis in two passes
+(:func:`make_adafactor`), so no temporary is larger than one slice.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, NamedTuple
+from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
@@ -116,14 +121,144 @@ def make_adamw(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
     return Optimizer("adamw", init, update)
 
 
+class FactoredMoment(NamedTuple):
+    """Adafactor's second moment of one parameter: the row and column
+    means ``vr`` (the last dimension reduced) and ``vc`` (the second to
+    last reduced) of a factorable leaf, or the full ``v`` of another; the
+    unused fields are None."""
+
+    vr: Optional[torch.Tensor]
+    vc: Optional[torch.Tensor]
+    v: Optional[torch.Tensor]
+
+
+def _factorable(shape) -> bool:
+    """Whether a leaf of ``shape`` keeps factored moments: rank 2 or more
+    with both trailing dimensions above 1 (by shape, not by meaning: a
+    stacked norm (L, d) is factored too)."""
+    return len(shape) >= 2 and shape[-1] > 1 and shape[-2] > 1
+
+
+def _advance(g2, fm: FactoredMoment, decay: float) -> FactoredMoment:
+    """The new moments from the squared gradient ``g2`` (plus eps)."""
+    if fm.v is None:
+        return FactoredMoment(decay * fm.vr + (1 - decay) * torch.mean(g2, dim=-1),
+                              decay * fm.vc + (1 - decay) * torch.mean(g2, dim=-2),
+                              None)
+    return FactoredMoment(None, None, decay * fm.v + (1 - decay) * g2)
+
+
+def _denom(fm: FactoredMoment):
+    """The step's clamped denominator from advanced moments: the factored
+    ``sqrt(r vc)`` with ``r = vr / mean(vr)``, or ``sqrt(v)``."""
+    if fm.v is None:
+        r = fm.vr / torch.mean(fm.vr, dim=-1, keepdim=True).clamp(min=1e-30)
+        denom = torch.sqrt(r[..., None] * fm.vc[..., None, :])
+    else:
+        denom = torch.sqrt(fm.v)
+    return denom.clamp(min=1e-30)
+
+
+def _write(dst: FactoredMoment, src: FactoredMoment) -> None:
+    for old, new in zip(dst, src):
+        if old is not None:
+            old.copy_(new)
+
+
+def _apply(p, step, scale, lr: float, bf16_step: bool) -> None:
+    """``p <- p - lr * (step / scale)`` in place; with ``bf16_step`` the
+    step, and ``lr`` with it, is rounded to bf16 before the product (as the
+    reference's bf16 step meets its weakly typed ``lr``), the subtraction
+    in fp32."""
+    step = step / scale
+    if bf16_step:
+        step = step.to(torch.bfloat16)
+        lr = torch.tensor(lr, dtype=torch.bfloat16, device=step.device)
+    p.copy_((p - lr * step).to(p.dtype))
+
+
+def _adafactor_leaf(p, g, fm: FactoredMoment, lr: float, decay: float,
+                    eps: float, clip_threshold: float,
+                    bf16_step: bool) -> FactoredMoment:
+    """Adafactor's update of one whole leaf in one pass (the reference's
+    form): the moments and ``p`` written in place."""
+    g = g.float()
+    new = _advance(g * g + eps, fm, decay)
+    step = g / _denom(new)
+    norm = torch.sqrt(torch.mean(step * step)).clamp(min=1.0 / clip_threshold)
+    _write(fm, new)
+    _apply(p, step, norm * clip_threshold, lr, bf16_step)
+    return fm
+
+
+def _adafactor_leaf_sliced(p, g, fm: FactoredMoment, lr: float, decay: float,
+                           eps: float, clip_threshold: float,
+                           bf16_step: bool) -> FactoredMoment:
+    """:func:`_adafactor_leaf` for a leaf of rank 3 or more, one slice of
+    the leading axis at a time: everything but the clipping norm (the RMS
+    of the whole leaf's step) is independent along that axis, so pass 1
+    writes each slice's new moments and sums its squared step, and pass 2
+    recomputes each slice's step from the new moments (the same bits) and
+    writes its parameters.  Temporaries stay within one slice; the result
+    equals the one-pass form's but for the order of the norm's sum."""
+    def part(i) -> FactoredMoment:
+        return FactoredMoment(*(None if m is None else m[i] for m in fm))
+
+    total = torch.zeros((), dtype=torch.float32, device=p.device)
+    for i in range(p.shape[0]):
+        gi = g[i].float()
+        new = _advance(gi * gi + eps, part(i), decay)
+        step = gi / _denom(new)
+        total += torch.sum(step * step)
+        _write(part(i), new)
+    norm = torch.sqrt(total / p.numel()).clamp(min=1.0 / clip_threshold)
+    for i in range(p.shape[0]):
+        _apply(p[i], g[i].float() / _denom(part(i)), norm * clip_threshold, lr,
+               bf16_step)
+    return fm
+
+
+def make_adafactor(decay: float = 0.99, eps: float = 1e-30,
+                   clip_threshold: float = 1.0,
+                   bf16_step: bool = False) -> Optimizer:
+    """Adafactor (Shazeer & Stern): factored fp32 second moments, no first
+    moment, update clipping at ``clip_threshold`` of the step's RMS, and
+    with ``bf16_step`` the step rounded to bf16 before it is applied.
+    Leaves of rank 3 or more (the stacked layer weights) take the two-pass
+    sliced update (:func:`_adafactor_leaf_sliced`), the others the one-pass
+    form: an LM's update then holds no more than one layer's temporaries,
+    which lets granite-8b (8.46 GB stacked MLP leaves) train on one card."""
+    def init(params):
+        def fm(p):
+            kw = dict(dtype=torch.float32, device=p.device)
+            if _factorable(p.shape):
+                return FactoredMoment(torch.zeros(p.shape[:-1], **kw),
+                                      torch.zeros(p.shape[:-2] + p.shape[-1:],
+                                                  **kw), None)
+            return FactoredMoment(None, None, torch.zeros(p.shape, **kw))
+        return OptState(tree_map(fm, params),
+                        torch.zeros((), dtype=torch.int32,
+                                    device=_device(params)))
+
+    def update(grads, state, params, lr):
+        def upd(p, g, fm: FactoredMoment):
+            leaf = _adafactor_leaf_sliced if p.ndim >= 3 else _adafactor_leaf
+            return leaf(p, g, fm, lr, decay, eps, clip_threshold, bf16_step)
+
+        moments = tree_map(upd, params, grads, state.moments)
+        return params, OptState(moments, state.count + 1)
+
+    return Optimizer("adafactor", init, update)
+
+
 def get_optimizer(name: str, **kw) -> Optimizer:
-    """Construct a registered optimizer by name (``sgd``, ``adamw``);
-    ``adafactor`` waits for a later slice."""
+    """Construct a registered optimizer by name (``sgd``, ``adamw``,
+    ``adafactor``)."""
     if name == "sgd":
         return make_sgd(**kw)
     if name == "adamw":
         return make_adamw(**kw)
     if name == "adafactor":
-        raise ValueError("optimizer 'adafactor' waits for a later slice of "
-                         "the port (ROADMAP.md, queue A)")
-    raise ValueError(f"unknown optimizer {name!r}; available: sgd, adamw")
+        return make_adafactor(**kw)
+    raise ValueError(f"unknown optimizer {name!r}; available: sgd, adamw, "
+                     "adafactor")

@@ -1,7 +1,7 @@
 """The training loops of the port: the MF half of
 ``src/repro/train/trainer.py`` (``train_mf``) and its LM half
-(``train_lm``: a dense, MoE, SSM, hybrid or VLM LM with the HEAT vocab
-head or the softmax head).
+(``train_lm``: an LM of any family with the HEAT vocab head or the softmax
+head, under SGD, AdamW or Adafactor).
 
 The loop runs in K-step windows: an :class:`EpochExecutor` runs K steps as a
 Python loop, each drawing its batch on the device from (seed, step), and
@@ -299,6 +299,26 @@ def init_lm_state(seed: int, cfg: ArchConfig, opts: lm.TrainOptions,
     return LMTrainState(params, optimizer.init(params), tile, 0)
 
 
+def lm_window_body(cfg: ArchConfig, opts: lm.TrainOptions, tcfg: TrainerConfig,
+                   optimizer: Optimizer, extras_spec: Optional[dict] = None,
+                   device=None) -> Callable:
+    """:func:`train_lm`'s window body, ``body(state, step) -> (state,
+    loss)``: the step on ``pipeline.lm_batch`` drawn on ``device`` from
+    (seed, step) (``tcfg.fixed_batch``: always step 0's, with
+    ``extras_spec``'s modality inputs) with the key ``fold_in(seed,
+    step)``."""
+    step_fn = make_lm_train_step_raw(cfg, opts, optimizer, tcfg.lr,
+                                     tcfg.grad_accum)
+
+    def body(state: LMTrainState, step: int):
+        batch = pipeline.lm_batch(0 if tcfg.fixed_batch else step,
+                                  tcfg.batch_size, tcfg.seq_len, cfg.vocab,
+                                  tcfg.seed, device, extras_spec)
+        return step_fn(state, batch, mf.fold_in(tcfg.seed, step))
+
+    return body
+
+
 def train_lm(cfg: ArchConfig, opts: lm.TrainOptions, tcfg: TrainerConfig,
              extras_spec: Optional[dict] = None, *, device=None,
              log: Callable[[str], None] = print):
@@ -319,16 +339,9 @@ def train_lm(cfg: ArchConfig, opts: lm.TrainOptions, tcfg: TrainerConfig,
     dev = mf.resolve_device(device)
     optimizer = get_optimizer(tcfg.optimizer)
     state = init_lm_state(tcfg.seed, cfg, opts, optimizer, device=dev)
-    step_fn = make_lm_train_step_raw(cfg, opts, optimizer, tcfg.lr,
-                                     tcfg.grad_accum)
-
-    def body(state: LMTrainState, step: int):
-        batch = pipeline.lm_batch(0 if tcfg.fixed_batch else step,
-                                  tcfg.batch_size, tcfg.seq_len, cfg.vocab,
-                                  tcfg.seed, dev, extras_spec)
-        return step_fn(state, batch, mf.fold_in(tcfg.seed, step))
-
-    executor = EpochExecutor(body, tcfg.steps_per_dispatch)
+    executor = EpochExecutor(lm_window_body(cfg, opts, tcfg, optimizer,
+                                            extras_spec, dev),
+                             tcfg.steps_per_dispatch)
     start = 0
     if tcfg.ckpt_dir and ckpt.latest_step(tcfg.ckpt_dir) is not None:
         state, start, _ = ckpt.restore(tcfg.ckpt_dir, state)

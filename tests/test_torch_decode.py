@@ -364,15 +364,38 @@ def test_config_is_the_reference_config(arch):
 
 @pytest.mark.parametrize("arch,family", [("whisper-medium", "audio")])
 def test_waiting_families_raise_and_name_their_slice(arch, family):
-    slice_name = {"audio": "audio slice"}[family]
-    with pytest.raises(ValueError, match=slice_name):
-        get_config(arch)
+    """The family that once waited for a later slice of the port (audio)
+    is served now: its config, ``model_defs`` and ``cache_defs`` (reduced)
+    equal the reference's, names and shapes, the config also built from
+    the reference's fields; an unknown family is refused by name."""
+    tc = get_config(arch).reduced()
+    assert tc.family == family
     cfg = ArchConfig(**{f.name: getattr(jget_config(arch).reduced(), f.name)
                         for f in dataclasses.fields(ArchConfig)
                         if f.name != "heat"})
-    for fn in (lm.model_defs, lambda c: lm.cache_defs(c, 2, 8)):
-        with pytest.raises(ValueError, match=slice_name):
-            fn(cfg)
+    assert cfg == dataclasses.replace(tc, heat=cfg.heat)
+    jc = jget_config(arch).reduced()
+    for fn, jfn in ((lm.model_defs, jlm.model_defs),
+                    (lambda c: lm.cache_defs(c, 2, 8),
+                     lambda c: jlm.cache_defs(c, 2, 8))):
+        want = {n: d.shape for n, d in _flatten_with_paths(jfn(jc))}
+        got = {n: d.shape for n, d in _def_items(fn(cfg))}
+        assert got == want
+    with pytest.raises(ValueError, match="unknown family"):
+        lm.model_defs(dataclasses.replace(cfg, family="no-such-family"))
+
+
+def _def_items(tree, prefix=""):
+    """``(name, ParamDef)`` of a ParamDef tree of dicts and NamedTuples,
+    named as the reference's leaves are (None fields absent)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree)
+                for x in _def_items(tree[k], f"{prefix}/{k}" if prefix else k)]
+    if isinstance(tree, tuple):
+        return [x for f in tree._fields if getattr(tree, f) is not None
+                for x in _def_items(getattr(tree, f),
+                                    f"{prefix}/{f}" if prefix else f)]
+    return [(prefix, tree)]
 
 
 def test_prefill_and_decode_refuse_to_fall_back_to_cpu(models):

@@ -1,19 +1,21 @@
-"""The port's SSM (mamba2-370m), hybrid (zamba2-2.7b) and VLM (qwen2-vl-2b)
-families against the JAX package, at their ``reduced()`` configs (2
-layers, d=64, vocab 256; Mamba heads of 16 with a state of 16 and a chunk
-of 8; the hybrid one group of 2 Mamba blocks and the shared block, and a
-second case at 4 layers, 2 groups, where the shared block's gradient sums
-over its two applications; the VLM 8 patch rows and M-RoPE).
+"""The port's SSM (mamba2-370m), hybrid (zamba2-2.7b), VLM (qwen2-vl-2b) and
+audio (whisper-medium) families against the JAX package, at their
+``reduced()`` configs (2 layers, d=64, vocab 256; Mamba heads of 16 with a
+state of 16 and a chunk of 8; the hybrid one group of 2 Mamba blocks and
+the shared block, and a second case at 4 layers, 2 groups, where the
+shared block's gradient sums over its two applications; the VLM 8 patch
+rows and M-RoPE; the audio model 2 encoder layers over 16 frames, 2
+decoder layers with cross-attention, 4 query heads on 2 K/V heads).
 
 Parameters are drawn with numpy from a seed at the reference's init
 scales, except the attention projections, at 1/sqrt of their contraction
-width: at the reference's own init (``wq``'s fan-in is its head count) the
+width (the decoder's ``cross`` projections too): at the reference's own init (``wq``'s fan-in is its head count) the
 attention logits are of order 20 at this width and the softmax nearly
 hard-max, so two fp32 orders of the same gradient part by up to 9e-4 on the
 token embedding (both packages are that far from each other's float64 runs;
 ROADMAP.md C.6).  The same tree goes into both packages.  The HEAT head's
 negatives replay the reference's draws as ``tests/test_torch_lm.py`` does;
-patches are numpy normals times 0.1.  Tolerances: 1e-5 absolute for fp32
+patches and frames are numpy normals times 0.1.  Tolerances: 1e-5 absolute for fp32
 results, 1e-5 of the largest element for cache leaves, one bf16 rounding
 more for bf16 caches, and the reference's ``rel < 2e-3`` for
 decode-after-prefill.
@@ -55,7 +57,7 @@ from repro_torch.train import trainer
 ATOL = 1e-5
 BF16_ULP = 2.0 ** -7
 B, S = 2, 12
-ARCHS = ["mamba2-370m", "zamba2-2.7b", "qwen2-vl-2b"]
+ARCHS = ["mamba2-370m", "zamba2-2.7b", "qwen2-vl-2b", "whisper-medium"]
 #: the configs of the model-level tests: the three reduced configs and the
 #: hybrid at 4 layers (2 groups).
 CASES = ARCHS + ["zamba2-2.7b/G2"]
@@ -93,14 +95,18 @@ def _np_params(tc, seed=0) -> dict:
 
 def _batches(tc, s=S + 1, seed=0):
     """The same numpy batch for both packages: tokens (B, s), and for the
-    VLM patches (B, num_patches, d) of normals times 0.1."""
+    VLM patches (B, num_patches, d), for the audio model frames (B,
+    encoder_seq, d), of normals times 0.1."""
     r = np.random.default_rng(seed)
     toks = r.integers(0, tc.vocab, (B, s)).astype(np.int32)
     jb = {"tokens": jnp.asarray(toks)}
     tb = {"tokens": torch.as_tensor(toks, dtype=torch.int64)}
-    if tc.family == "vlm":
-        pt = 0.1 * r.standard_normal((B, tc.num_patches, tc.d_model)).astype(np.float32)
-        jb["patches"], tb["patches"] = jnp.asarray(pt), torch.as_tensor(pt)
+    extra = {"vlm": ("patches", tc.num_patches),
+             "audio": ("frames", tc.encoder_seq)}.get(tc.family)
+    if extra:
+        name, rows = extra
+        x = 0.1 * r.standard_normal((B, rows, tc.d_model)).astype(np.float32)
+        jb[name], tb[name] = jnp.asarray(x), torch.as_tensor(x)
     return jb, tb
 
 
@@ -242,9 +248,9 @@ def test_prefill_matches_reference(models, case):
             assert np.all(np.abs(got_c[name] - w) <= tol), name
         if cache.mamba is not None:
             assert cache.mamba.conv.dtype == cache.mamba.state.dtype == torch.float32
-        for kv in (cache.kv, cache.shared_kv):
+        for kv in (cache.kv, cache.shared_kv, cache.cross_kv):
             if kv is not None:
-                assert kv.k.dtype == getattr(torch, dt)
+                assert kv[0].dtype == kv[1].dtype == getattr(torch, dt)
 
 
 @pytest.mark.parametrize("cache_dtype", ["float32", "bfloat16"])
@@ -266,7 +272,7 @@ def test_decode_step_fed_the_reference_cache_matches(models, case, cache_dtype):
                               device="cpu")
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
     assert got.shape == (B, 1, tc.vocab)
-    for member in ("kv", "mamba", "shared_kv"):
+    for member in ("kv", "mamba", "shared_kv", "cross_kv"):
         assert getattr(new, member) is getattr(cache, member)       # in place
     want_c = {n: np.asarray(a, np.float32) for n, a in _tree(jnew).items()}
     got_c = convert.decode_cache_to_numpy(new)
@@ -309,8 +315,11 @@ def test_decode_after_prefill_matches_prefill(models, case, init):
 @pytest.mark.parametrize("case", CASES)
 def test_pad_cache_and_cache_defs_match_reference(models, case):
     """``pad_cache`` grows the K/V rows (zeros after the prefix) and leaves
-    the Mamba cache alone; the padded cache, ``cache_defs`` and the
-    reference's padded cache have the same names and shapes."""
+    the Mamba cache and the encoder's K/V alone; the padded cache and the
+    reference's padded cache have the same names and shapes, and
+    ``cache_defs`` the reference's ``cache_defs``' (the same shapes as the
+    padded cache; the audio family's ``cross_kv`` is a plain pair after
+    prefill and a ``KVCache`` in ``cache_defs``, in both packages)."""
     jc, tc, jp, tp = models[case]
     jb, tb = _batches(tc, s=S)
     jo, to = _opts("bfloat16")
@@ -321,9 +330,13 @@ def test_pad_cache_and_cache_defs_match_reference(models, case):
     defs = lm.cache_defs(tc, B, 20)
     got = {n: a.shape for n, a in convert.decode_cache_to_numpy(padded).items()}
     assert got == want
-    assert {n: d.shape for n, d in _def_names(defs).items()} == want
-    if padded.mamba is not None:
-        assert padded.mamba is cache.mamba
+    want_defs = {n: d.shape for n, d in _flatten_with_paths(
+        jlm.cache_defs(jc, B, 20))}
+    assert {n: d.shape for n, d in _def_names(defs).items()} == want_defs
+    assert sorted(want_defs.values()) == sorted(want.values())
+    for member in ("mamba", "cross_kv"):
+        if getattr(padded, member) is not None:
+            assert getattr(padded, member) is getattr(cache, member)
     for kv, before in ((padded.kv, cache.kv), (padded.shared_kv, cache.shared_kv)):
         if kv is not None:
             assert torch.equal(kv.k[:, :, :S], before.k) and not kv.k[:, :, S:].any()
@@ -332,7 +345,7 @@ def test_pad_cache_and_cache_defs_match_reference(models, case):
 def _def_names(defs) -> dict:
     out = {}
     for member, names in (("kv", ("k", "v")), ("mamba", ("conv", "state")),
-                          ("shared_kv", ("k", "v"))):
+                          ("shared_kv", ("k", "v")), ("cross_kv", ("k", "v"))):
         m = getattr(defs, member)
         if m is not None:
             for n in names:
@@ -373,6 +386,35 @@ def test_decode_cache_roundtrips_through_convert(models, arch):
     assert list(got) == list(want)
     for n in want:
         np.testing.assert_array_equal(got[n], np.asarray(want[n], np.float32))
+
+
+def test_cross_kv_roundtrips_through_convert_in_both_forms(models):
+    """The reference's prefill cache, whose ``cross_kv`` is the plain
+    (k, v) pair its scan stacks (``cross_kv/0``, ``cross_kv/1``, bf16
+    bits), and its ``cache_defs`` zeros, whose ``cross_kv`` is a
+    ``KVCache`` (``cross_kv/k``, ``cross_kv/v``), carry over by name and
+    back, each in its own form; the port's prefill gives the pair too."""
+    jc, tc, jp, tp = models["whisper-medium"]
+    jb, tb = _batches(tc, s=S)
+    _, jcache = jlm.prefill(jp, jb, jc, _opts("bfloat16")[0])
+    assert type(jcache.cross_kv).__name__ == "tuple"
+    zeros = jax.tree.map(lambda d: jnp.zeros(d.shape, jnp.bfloat16),
+                         jlm.cache_defs(jc, B, S), is_leaf=lambda x: hasattr(x, "init"))
+    for jtree, names in ((jcache, ("0", "1")), (zeros, ("k", "v"))):
+        want = _tree(jtree)
+        assert [n for n in want if n.startswith("cross_kv")] == [
+            f"cross_kv/{n}" for n in names]
+        cache = convert.decode_cache_from_numpy(want)
+        assert isinstance(cache.cross_kv, layers.KVCache) == (names == ("k", "v"))
+        assert cache.cross_kv[0].dtype == torch.bfloat16
+        assert cache.cross_kv[0].shape == (tc.n_layers, B, tc.encoder_seq,
+                                           tc.n_kv_heads, tc.head_dim)
+        got = convert.decode_cache_to_numpy(cache)
+        assert list(got) == list(want)
+        for n in want:
+            np.testing.assert_array_equal(got[n], np.asarray(want[n], np.float32))
+    _, cache = lm.prefill(tp, tb, tc, _opts("bfloat16")[1], device="cpu")
+    assert type(cache.cross_kv) is tuple and len(cache.cross_kv) == 2
 
 
 # --------------------------------------------------------------------------
@@ -445,12 +487,12 @@ def test_train_lm_restart_is_bit_identical_on_mamba2(tmp_path):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_train_lm_trains_each_family_on_cpu(arch):
-    """``train_lm`` (with the VLM's patches from ``extras_spec``) on one
-    fixed batch: finite losses that fall, and one shared-stats and one
-    shared-backward launch a step on the ``pallas`` head."""
+    """``train_lm`` (with the VLM's patches or the audio model's frames
+    from ``extras_spec``) on one fixed batch: finite losses that fall, and
+    one shared-stats and one shared-backward launch a step on the
+    ``pallas`` head."""
     cfg = _reduced_pallas(arch)
-    extras = ({"patches": ((4, cfg.num_patches, cfg.d_model), torch.float32)}
-              if cfg.family == "vlm" else None)
+    extras = _extras(cfg, 4)
     for c in (ccl_similarity.SHARED_STATS_LAUNCHES, ccl_similarity.SHARED_BWD_LAUNCHES):
         c.reset()
     _, losses = trainer.train_lm(
@@ -466,10 +508,21 @@ def test_train_lm_trains_each_family_on_cpu(arch):
     assert ccl_similarity.SHARED_BWD_LAUNCHES.count("cpu") == 3
 
 
+def _extras(cfg, b: int):
+    """``train_lm``'s ``extras_spec`` of a family: a VLM's patches, an
+    audio model's frames (fp32), else None."""
+    if cfg.family == "vlm":
+        return {"patches": ((b, cfg.num_patches, cfg.d_model), torch.float32)}
+    if cfg.family == "audio":
+        return {"frames": ((b, cfg.encoder_seq, cfg.d_model), torch.float32)}
+    return None
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_train_and_serve_clis_run_each_family_on_cpu(capsys, arch):
     """The train CLI's last line and the serve CLI's three lines (the VLM
-    served with zero patches, as the reference's launcher feeds them)."""
+    served with zero patches and the audio model with zero frames, as the
+    reference's launcher feeds them)."""
     from repro_torch.launch import serve
     from repro_torch.launch import train as train_cli
     train_cli.main(["--arch", arch, "--reduced", "--steps", "2", "--batch", "2",

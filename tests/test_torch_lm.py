@@ -144,8 +144,8 @@ def test_config_is_the_reference_config():
             full.head_dim, full.d_ff, full.vocab) == (32, 960, 15, 5, 64, 2560,
                                                       49152)
     assert get_config("smollm_360m") == full
-    with pytest.raises(ValueError, match="waits"):
-        get_config("whisper-medium")
+    assert dataclasses.asdict(get_config("whisper-medium")) == dataclasses.asdict(
+        jget_config("whisper-medium"))
     with pytest.raises(ValueError, match="unknown"):
         get_config("no-such-model")
 
@@ -383,8 +383,8 @@ def test_optimizer_update_matches_reference(name, kw):
             np.testing.assert_allclose(got[n], want[n], atol=ATOL, err_msg=n)
     fresh = topt.init(port(params))
     assert int(fresh.count) == 0 and fresh.count.dtype == torch.int32
-    with pytest.raises(ValueError, match="waits"):
-        optimizers.get_optimizer("adafactor")
+    ada = optimizers.get_optimizer("adafactor")
+    assert isinstance(ada, optimizers.Optimizer) and ada.name == "adafactor"
 
 
 # --------------------------------------------------------------------------
@@ -517,8 +517,12 @@ def test_cli_trains_the_reduced_lm_on_cpu():
     lines = r.stdout.strip().splitlines()
     assert lines[0].startswith("[launch] LM head engine: pallas+scatter_add+auto")
     assert lines[-1].startswith("done: 3 steps, final loss")
-    bad = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
-                          "--arch", "whisper-medium", "--device", "cpu"],
-                         capture_output=True, text=True, cwd=ROOT, timeout=120,
-                         env=_env())
-    assert bad.returncode != 0 and "waits" in bad.stderr
+    audio = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
+                            "--arch", "whisper-medium", "--reduced", "--steps",
+                            "2", "--seq", "16", "--batch", "2", "--optimizer",
+                            "adafactor", "--device", "cpu"],
+                           capture_output=True, text=True, cwd=ROOT,
+                           timeout=300, env=_env())
+    assert audio.returncode == 0, audio.stderr
+    assert audio.stdout.strip().splitlines()[-1].startswith(
+        "done: 2 steps, final loss")

@@ -496,12 +496,19 @@ def test_serve_cli_trains_serves_with_both_pruners_and_refreshes(capsys):
 
 
 def test_serve_cli_without_mf_names_the_roadmap_item(capsys):
-    """Without ``--mf`` the launcher serves the LM; an architecture whose
-    family is not ported yet is refused, naming its ROADMAP.md item."""
+    """Without ``--mf`` the launcher serves the LM, the audio family too
+    (which once waited for its ROADMAP.md item, A.6): reduced whisper with
+    zero frames prints the three lines; an unknown architecture is
+    refused by name."""
     from repro_torch.launch import serve
+    serve.main(["--arch", "whisper-medium", "--device", "cpu",
+                "--decode-steps", "3"])
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert len(lines) == 3 and lines[0].startswith("prefill: 4x16 tokens in ")
+    assert lines[2].startswith("generated ids[0]: ")
     with pytest.raises(SystemExit):
-        serve.main(["--arch", "whisper-medium", "--device", "cpu"])
-    assert "A.6" in capsys.readouterr().err
+        serve.main(["--arch", "no-such-model", "--device", "cpu"])
+    assert "unknown architecture" in capsys.readouterr().err
 
 
 def test_serve_cli_refuses_to_fall_back_to_cpu():
