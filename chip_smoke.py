@@ -238,7 +238,25 @@ Phases, one line each (a few print more):
      peak memory and its parts (parameters, gradients, Adafactor state,
      the rest), #3 and #4 at its head shape (T = 1,022, K = 4,096; these
      entries join the kernels line); the phase raises if the model does
-     not fit; and the seconds of each part and of the phase.
+     not fit; and the seconds of each part and of the phase;
+ 22. LM training under a mesh (``TrainerConfig.mesh``), #3 and #4 on every
+     rank, 4 steps a run in windows of 2 (remat full): (a) smollm-360m at 8
+     x 1,024 with AdamW (lr 1e-3) on a one-rank NCCL mesh, bit for bit the
+     unsharded ``train_lm``; (b) moonshot-v1-16b-a3b cut to 4 layers at 4 x
+     512 on two gloo ranks sharing card 0 at model=2 (experts, the 163,840-
+     row vocab tables and the attention leaves split), SGD at lr 10 from
+     the conditioned init: at capacity factor E / k within 1e-5 of the
+     unsharded run (losses, and 4,096 fixed elements of every parameter
+     leaf), and its losses at 1.25; (c) smollm-360m on four gloo ranks at
+     data=2 x model=2: SGD from a conditioned step-0 checkpoint within 1e-5
+     of the unsharded run, the same run crashed at step 3 and healed from
+     its step-2 checkpoint bit for bit on every rank, that checkpoint
+     continued by one process within 1e-5, and 2 AdamW steps beside the
+     unsharded AdamW run; (d) ``launch.train --arch smollm-360m --mesh host
+     --mesh-data 2 --dist-backend gloo`` for 2 steps.  Each run prints ms a
+     step and the exchanges' share over its windows (each exchange timed
+     as 18b times them), every rank's peak memory and launches of #3 and
+     #4 a step; and the phase's seconds.
 
 Then it prints the total seconds, the kernels' JSON line, the card line, and
 as its last line ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
@@ -247,6 +265,7 @@ device.  It imports nothing of JAX or of the JAX package ``repro``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -2557,14 +2576,14 @@ def init_step_probe(dev, card: str, label: str, cfg, opts, tcfg, extras) -> None
     the port's (ROADMAP.md C.8)."""
     import torch
     from repro_torch.models.params import tree_items
-    from repro_torch.optim.optimizers import Optimizer, get_optimizer
+    from repro_torch.optim.optimizers import get_optimizer
     from repro_torch.train import trainer
     opt, seen = get_optimizer(tcfg.optimizer), {}
 
     def update(grads, state, params, lr):
         seen.update((n, g.abs().max().item()) for n, g in tree_items(grads))
         return opt.update(grads, state, params, lr)
-    probe = Optimizer(opt.name, opt.init, update)
+    probe = dataclasses.replace(opt, update=update)
     state = trainer.init_lm_state(tcfg.seed, cfg, opts, probe, device=dev)
     state, losses, _ = trainer.run_window(trainer.EpochExecutor(
         trainer.lm_window_body(cfg, opts, tcfg, probe, extras, dev), 1), state, 0, 1)
@@ -2625,6 +2644,470 @@ def audio_phase(dev, card: str, flush, counters) -> list:
     print(f"[21 audio] phase 21 took {time.perf_counter() - t_phase:.1f} s | {card}",
           flush=True)
     return entries
+
+
+#: phase 22: LM training under a mesh, SHARD_LM_STEPS steps a run in windows
+#: of SHARD_LM_WINDOW (remat full, the HEAT head on pallas): smollm-360m at
+#: full width and depth on batch LM_B x LM_S (22a: one NCCL rank; 22c: four
+#: gloo ranks at data=2 x model=2); moonshot-v1-16b-a3b cut to MOE_LAYERS
+#: layers on MOE_B x MOE_S (22b: two gloo ranks at model=2); the CLI for
+#: SHARD_LM_CLI_STEPS steps (22d).  AdamW (lr LM_LR) normalizes each
+#: gradient element by its own size, so two fp32 orders of one gradient move
+#: a near-zero element by up to 2 lr a step: the runs held to the unsharded
+#: run within SHARD_ATOL take SGD at SHARD_LM_SGD_LR (a rate at which these
+#: models' gradients move the state by about 1e-3 in 4 steps), and AdamW is
+#: held bit for bit on one rank (22a) and run for SHARD_LM_ADAMW_STEPS steps
+#: on four (22c), its distance to the unsharded AdamW run printed.  The SGD
+#: runs start from train_lm's init with the attention conditioned (C.6: at
+#: the reference's init smollm-360m's gradients reach 2e11): smollm-360m's
+#: saved as a step-0 checkpoint that train_lm resumes, moonshot's
+#: conditioned on each rank's slices and run through train_lm's window body
+#: (as phase 21b runs granite-8b).  A state is compared on SHARD_LM_SAMPLES
+#: fixed elements of every leaf; 22c's SGD run fails at SHARD_LM_FAIL with a
+#: checkpoint every SHARD_LM_CKPT steps.
+SHARD_LM_STEPS, SHARD_LM_WINDOW, SHARD_LM_CKPT, SHARD_LM_FAIL = 4, 2, 2, 3
+SHARD_LM_ADAMW_STEPS, SHARD_LM_CLI_STEPS, SHARD_LM_SAMPLES = 2, 2, 4096
+SHARD_LM_SGD_LR = 10.0
+
+
+def leaf_samples(params, n: int = SHARD_LM_SAMPLES, seed: int = 22) -> dict:
+    """``{path: (flat indices, values)}`` of ``n`` fixed random elements of
+    every leaf of a whole parameter tree (host tensors)."""
+    import torch
+    from repro_torch.models.params import tree_items
+    out = {}
+    for path, x in tree_items(params):
+        gen = torch.Generator().manual_seed(seed)
+        idx = torch.randint(0, x.numel(), (min(n, x.numel()),), generator=gen)
+        out[path] = (idx, x.reshape(-1)[idx.to(x.device)].cpu())
+    return out
+
+
+def samples_moved(a: dict, b: dict) -> float:
+    """Largest difference between two :func:`leaf_samples` of one tree."""
+    return max(float((a[p][1] - b[p][1]).abs().max()) for p in a)
+
+
+def sampled_diff(params, samples: dict, plan=None) -> float:
+    """Largest |param - sample| over the samples whose elements this rank
+    holds (under ``plan``, a rank holds the slices its specs select)."""
+    import numpy as np
+    import torch
+    from repro_torch.models.params import sharded_dims, tree_items
+    specs = dict(tree_items(plan.specs)) if plan is not None else {}
+    worst = 0.0
+    for path, x in tree_items(params):
+        idx, want = samples[path]
+        dims = sharded_dims(specs[path], plan.mesh) if plan is not None else []
+        whole = list(x.shape)
+        for d, g in dims:
+            whole[d] *= g.size
+        coords = list(np.unravel_index(idx.numpy(), whole))
+        mine = np.ones(idx.shape[0], dtype=bool)
+        for d, g in dims:
+            mine &= coords[d] // x.shape[d] == g.index
+            coords[d] = coords[d] - g.index * x.shape[d]
+        if not mine.any():
+            continue
+        flat = np.ravel_multi_index(tuple(c[mine] for c in coords), x.shape)
+        got = x.reshape(-1)[torch.as_tensor(flat).to(x.device)].cpu()
+        worst = max(worst, float((got - want[torch.as_tensor(mine)]).abs().max()))
+    return worst
+
+
+@contextlib.contextmanager
+def step_clock():
+    """Times a run's windows and the exchanges inside them: each
+    ``EpochExecutor.run`` between two device synchronizations, and each
+    ``sharding.all_gather_parts`` (every exchange goes through it) inside a
+    window the same way, as phase 18b times them.  Yields a dict of the
+    windows' seconds, the exchanges' seconds and the steps."""
+    import torch
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.train import trainer
+    clock = {"window_s": 0.0, "exchange_s": 0.0, "steps": 0}
+    run, gather = trainer.EpochExecutor.run, shd.all_gather_parts
+    inside = [False]
+
+    def timed_run(self, state, start, length):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        inside[0] = True
+        try:
+            out = run(self, state, start, length)
+            torch.cuda.synchronize()
+        finally:
+            inside[0] = False
+        clock["window_s"] += time.perf_counter() - t0
+        clock["steps"] += length
+        return out
+
+    def timed_gather(parts, group):
+        if not inside[0]:
+            return gather(parts, group)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = gather(parts, group)
+        torch.cuda.synchronize()
+        clock["exchange_s"] += time.perf_counter() - t0
+        return out
+
+    trainer.EpochExecutor.run, shd.all_gather_parts = timed_run, timed_gather
+    try:
+        yield clock
+    finally:
+        trainer.EpochExecutor.run, shd.all_gather_parts = run, gather
+
+
+def conditioned_run(cfg, opts, tcfg, dev, plan=None):
+    """``train_lm``'s init (this rank's slices under ``plan``) with the
+    attention conditioned (:func:`condition_attention_`), trained by
+    ``train_lm``'s window body for ``tcfg.steps`` steps in windows of
+    ``tcfg.steps_per_dispatch``; returns ``(state, losses)``."""
+    from repro_torch.optim.optimizers import get_optimizer
+    from repro_torch.train import trainer
+    opt = get_optimizer(tcfg.optimizer)
+    state = trainer.init_lm_state(tcfg.seed, cfg, opts, opt, device=dev, plan=plan)
+    condition_attention_(state.params, cfg)
+    executor = trainer.EpochExecutor(
+        trainer.lm_window_body(cfg, opts, tcfg, opt, None, dev, plan),
+        tcfg.steps_per_dispatch,
+        reduce=None if plan is None else plan.reduce_losses)
+    losses, step = [], 0
+    while step < tcfg.steps:
+        state, window, length = trainer.run_window(executor, state, step, tcfg.steps)
+        losses += window
+        step += length
+    return state, losses
+
+
+def lm_run(cfg, opts, tcfg, dev, mesh=None, samples=None, condition: bool = False):
+    """One ``train_lm`` run on this rank, sharded under ``mesh``
+    (``condition``: through :func:`conditioned_run`): its losses, logs,
+    launches of #3 and #4, ms a step and exchange ms a step over its windows
+    (:func:`step_clock`), peak memory and sampled state difference; returns
+    ``(state, plan, the numbers)``."""
+    import torch
+    from repro_torch.kernels import ccl_similarity
+    from repro_torch.models import lm_distributed as lmd
+    from repro_torch.optim.optimizers import get_optimizer
+    from repro_torch.train import trainer
+    counters = (ccl_similarity.SHARED_STATS_LAUNCHES,
+                ccl_similarity.SHARED_BWD_LAUNCHES)
+    for c in counters:
+        c.reset()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    logs = []
+    plan = (None if mesh is None
+            else lmd.LMShardingPlan(cfg, mesh, get_optimizer(tcfg.optimizer)))
+    with step_clock() as clock:
+        if condition:
+            state, losses = conditioned_run(cfg, opts, tcfg, dev, plan)
+        else:
+            state, losses = trainer.train_lm(cfg, opts, dataclasses.replace(
+                tcfg, mesh=mesh), device=dev, log=logs.append)
+    out = {"losses": losses, "logs": logs,
+           "launches": {c.name: c.count() for c in counters},
+           "ms": 1e3 * clock["window_s"] / clock["steps"],
+           "exch_ms": 1e3 * clock["exchange_s"] / clock["steps"],
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    if samples is not None:
+        out["diff"] = sampled_diff(state.params, samples, plan)
+    return state, plan, out
+
+
+def lm_shard_rank_moe(runs: dict, opts) -> dict:
+    """One of phase 22b's two gloo ranks on card 0 (model=2): each of
+    ``runs`` (label -> (config, trainer config, samples of the unsharded
+    run or None)) as :func:`lm_run` from the conditioned init, and rank 0's
+    local leaf shapes."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh, rank_device
+    dev = rank_device("cuda")
+    mesh = make_host_mesh(1, 2)
+    out = {"device": str(dev), "rank": dist.get_rank()}
+    for label, (cfg, tcfg, samples) in runs.items():
+        state, _, out[label] = lm_run(cfg, opts, tcfg, dev, mesh, samples,
+                                      condition=True)
+        p = state.params
+        out["local"] = {k: tuple(v.shape) for k, v in (
+            ("embed", p["embed"]), ("out_embed", p["out_embed"]),
+            ("w_gate", p["blocks"]["moe"]["w_gate"]),
+            ("wq", p["blocks"]["attn"]["wq"]), ("wo", p["blocks"]["attn"]["wo"]))}
+        del state, p
+        torch.cuda.empty_cache()
+    return out
+
+
+def lm_shard_rank_mesh22(cfg, opts, sgd, crash, adamw, samples) -> dict:
+    """One of phase 22c's four gloo ranks on card 0 (data=2 x model=2):
+    the SGD run from the conditioned step-0 checkpoint in ``sgd.ckpt_dir``,
+    held to the unsharded one; the same run crashed at step SHARD_LM_FAIL
+    and healed from its checkpoint (``crash``, whose step-SHARD_LM_CKPT
+    checkpoint 22c's elastic restore continues), held to the first bit for
+    bit on this rank's slices; and the AdamW run."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh, rank_device
+    from repro_torch.train import checkpoint as ckpt
+    dev = rank_device("cuda")
+    mesh = make_host_mesh(2, 2)
+    out = {"device": str(dev), "rank": dist.get_rank(), "coords": dict(mesh.coords)}
+    state, plan, out["sgd"] = lm_run(cfg, opts, sgd, dev, mesh, samples)
+    out["rows"] = plan.batch_rows(sgd.batch_size)
+    clean = {n: x.cpu().clone() for n, x in ckpt.named_leaves(state)
+             if isinstance(x, torch.Tensor)}
+    del state
+    state, _, out["crash"] = lm_run(cfg, opts, crash, dev, mesh)
+    out["crash"]["same_state"] = all(
+        torch.equal(x.cpu(), clean[n]) for n, x in ckpt.named_leaves(state)
+        if isinstance(x, torch.Tensor))
+    del state, clean
+    _, _, out["adamw"] = lm_run(cfg, opts, adamw, dev, mesh)
+    return out
+
+
+def lm_sharding_phase(dev, card: str, counters) -> float:
+    """Phase 22: LM training under a mesh (``TrainerConfig.mesh``), through
+    kernels #3 and #4 on every rank.  22a: smollm-360m (AdamW) on a
+    one-rank NCCL mesh against the unsharded run, bit for bit; 22b: the
+    cut moonshot-v1-16b-a3b (SGD) on two gloo ranks sharing card 0 at
+    model=2 (experts, vocab tables and attention leaves split), at capacity
+    E / k within 1e-5 of the unsharded run, and at 1.25; 22c: smollm-360m
+    on four gloo ranks at data=2 x model=2, SGD within 1e-5 of the
+    unsharded run, the same run crashed and healed bit for bit, its
+    step-2 checkpoint continued by one process within 1e-5, and AdamW
+    beside the unsharded AdamW run; 22d: the CLI with --mesh-data 2.  Each
+    run prints ms a step and the exchanges' share over its windows, every
+    rank's peak memory and its launches of #3 and #4 a step.  Returns the
+    phase's seconds."""
+    import shutil
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import init_rank, make_data_mesh, run_ranks
+    from repro_torch.models import lm
+    from repro_torch.optim.optimizers import get_optimizer
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import trainer
+    t_phase = time.perf_counter()
+    steps = SHARD_LM_STEPS
+
+    def launches_ok(numbers, n):
+        want = {"ccl_stats_shared": n, "ccl_bwd_shared": n}
+        assert numbers["launches"] == want, numbers["launches"]
+        assert all(math.isfinite(x) for x in numbers["losses"]), numbers["losses"]
+
+    def run_line(numbers):
+        n = len(numbers["losses"])
+        return (f"#3/#4 {numbers['launches']['ccl_stats_shared'] / n:g}/"
+                f"{numbers['launches']['ccl_bwd_shared'] / n:g} a step, "
+                f"{numbers['ms']:.1f} ms a step, exchanges {numbers['exch_ms']:.1f} ms "
+                f"({100 * numbers['exch_ms'] / numbers['ms']:.1f}%), peak "
+                f"{numbers['peak_gb']:.2f} GB")
+
+    def ranks_line(ranks, label):
+        return "; ".join(f"rank {r['rank']} on {r['device']}: {run_line(r[label])}"
+                         for r in ranks)
+
+    base = get_config("smollm-360m")
+    cfg = dataclasses.replace(base, heat=dataclasses.replace(base.heat, backend="pallas"))
+    opts = lm.TrainOptions(loss="heat", remat="full", attn_chunk=LM_S)
+    adamw = trainer.TrainerConfig(steps=steps, lr=LM_LR, batch_size=LM_B, seq_len=LM_S,
+                                  optimizer="adamw", log_every=0,
+                                  steps_per_dispatch=SHARD_LM_WINDOW)
+    sgd = dataclasses.replace(adamw, optimizer="sgd", lr=SHARD_LM_SGD_LR)
+    # ---- the unsharded smollm-360m AdamW run ------------------------------------
+    ref, _, ref_run = lm_run(cfg, opts, adamw, dev)
+    launches_ok(ref_run, steps)
+    with tempfile.TemporaryDirectory() as work:
+        # ---- 22a: one NCCL rank -----------------------------------------------------
+        init_rank(0, 1, "nccl", os.path.join(work, "store"), "cuda")
+        try:
+            probe = torch.ones(1, device=dev)
+            dist.all_reduce(probe)
+            assert probe.item() == 1.0 and dist.get_backend() == "nccl"
+            state, _, one = lm_run(cfg, opts, adamw, dev, make_data_mesh(1))
+            launches_ok(one, steps)
+            same = one["losses"] == ref_run["losses"] and all(
+                torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
+                for (_, a), (_, b) in zip(ckpt.named_leaves(state),
+                                          ckpt.named_leaves(ref), strict=True))
+            assert same, "the one-rank mesh differs from the unsharded run"
+            del state, ref
+        finally:
+            dist.destroy_process_group()
+        print(f"[22a nccl] smollm-360m (32 layers, d=960, vocab 49152, HEAT head "
+              f"pallas) batch {LM_B} x {LM_S}, AdamW lr {LM_LR}, remat full: train_lm("
+              f"TrainerConfig(mesh=make_data_mesh(1))) over NCCL (an all-reduce probe "
+              f"passed) for {steps} steps against the unsharded train_lm: losses and "
+              f"every leaf of the state bit-identical: {same}; losses "
+              f"{[round(x, 6) for x in ref_run['losses']]}; {run_line(one)} (unsharded: "
+              f"{run_line(ref_run)}) | {card}", flush=True)
+        torch.cuda.empty_cache()
+
+        # ---- the unsharded smollm-360m SGD run, from a conditioned checkpoint ---------
+        init = trainer.init_lm_state(sgd.seed, cfg, opts, get_optimizer("sgd"), device=dev)
+        condition_attention_(init.params, cfg)
+        s_start = leaf_samples(init.params)
+        cond = os.path.join(work, "cond")
+        ckpt.save(cond, 0, init)
+        del init
+
+        def from_cond(name: str) -> str:
+            """A copy of the conditioned step-0 checkpoint."""
+            shutil.copytree(cond, os.path.join(work, name))
+            return os.path.join(work, name)
+
+        sref, _, sref_run = lm_run(cfg, opts, dataclasses.replace(
+            sgd, ckpt_dir=from_cond("sgd_ref"), ckpt_every=1000), dev)
+        launches_ok(sref_run, steps)
+        s_samples = leaf_samples(sref.params)
+        s_moved = samples_moved(s_samples, s_start)
+        del sref
+        torch.cuda.empty_cache()
+
+        # ---- 22b: moonshot-v1-16b-a3b, two gloo ranks at model=2 ---------------------
+        mbase = get_config("moonshot-v1-16b-a3b")
+        mcfg = dataclasses.replace(mbase, n_layers=MOE_LAYERS,
+                                   heat=dataclasses.replace(mbase.heat, backend="pallas"))
+        dropless = dataclasses.replace(mcfg, capacity_factor=mcfg.moe_experts
+                                       / mcfg.moe_top_k)
+        mopts = lm.TrainOptions(loss="heat", remat="full", attn_chunk=MOE_S)
+        msgd = dataclasses.replace(sgd, batch_size=MOE_B, seq_len=MOE_S)
+        init = trainer.init_lm_state(msgd.seed, dropless, mopts, get_optimizer("sgd"),
+                                     device=dev)
+        condition_attention_(init.params, dropless)
+        m_start = leaf_samples(init.params)
+        del init
+        mref, _, mref_run = lm_run(dropless, mopts, msgd, dev, condition=True)
+        launches_ok(mref_run, steps)
+        m_samples = leaf_samples(mref.params)
+        m_moved = samples_moved(m_samples, m_start)
+        del mref, m_start
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ranks = run_ranks(lm_shard_rank_moe, 2, args=(
+            {"ek": (dropless, msgd, m_samples), "125": (mcfg, msgd, None)}, mopts),
+            backend="gloo", device="cuda", timeout=600)
+        t_ranks = time.perf_counter() - t0
+        r0 = ranks[0]
+        loss_err = max(abs(a - b) for a, b in zip(r0["ek"]["losses"], mref_run["losses"]))
+        state_err = max(r["ek"]["diff"] for r in ranks)
+        for r in ranks:
+            for label in ("ek", "125"):
+                launches_ok(r[label], steps)
+                assert r[label]["losses"] == r0[label]["losses"]
+        assert loss_err <= SHARD_ATOL and state_err <= SHARD_ATOL, (loss_err, state_err)
+        print(f"[22b gloo model=2] moonshot-v1-16b-a3b cut to {MOE_LAYERS} of "
+              f"{mbase.n_layers} layers (d={mcfg.d_model}, {mcfg.moe_experts} experts "
+              f"top-{mcfg.moe_top_k}, vocab {mcfg.vocab}) batch {MOE_B} x {MOE_S}, SGD lr "
+              f"{SHARD_LM_SGD_LR:g} from train_lm's init with the attention conditioned, "
+              f"through train_lm's window body, 2 ranks sharing card 0 (rank 0's slices "
+              f"{r0['local']}); #3/#4 at T={MOE_B * (MOE_S - 1)}, K={mcfg.d_model}, n="
+              f"{mcfg.heat.num_negatives} on each rank; capacity factor E/k = "
+              f"{dropless.capacity_factor:.4f} (dropless): {steps} steps, losses max abs "
+              f"diff {loss_err:.3e}, sampled state {state_err:.3e} against the unsharded "
+              f"run (tol {SHARD_ATOL:g}; bit-identical: {loss_err == 0 and state_err == 0}; "
+              f"the state moved by up to {m_moved:.3e}; "
+              f"unsharded losses {[round(x, 6) for x in mref_run['losses']]}, "
+              f"{run_line(mref_run)}); {ranks_line(ranks, 'ek')} | {card}", flush=True)
+        print(f"[22b 1.25] the same at the config's capacity factor "
+              f"{mcfg.capacity_factor}: losses {[round(x, 6) for x in r0['125']['losses']]}; "
+              f"{ranks_line(ranks, '125')}; the two ranks' call took {t_ranks:.1f} s "
+              f"| {card}", flush=True)
+        del m_samples
+        torch.cuda.empty_cache()
+
+        # ---- 22c: smollm-360m, four gloo ranks at data=2 x model=2 ------------------
+        crash = dataclasses.replace(sgd, ckpt_dir=from_cond("crash"),
+                                    ckpt_every=SHARD_LM_CKPT, fail_at_step=SHARD_LM_FAIL)
+        t0 = time.perf_counter()
+        ranks = run_ranks(lm_shard_rank_mesh22, 4, args=(
+            cfg, opts, dataclasses.replace(sgd, ckpt_dir=from_cond("sgd"),
+                                           ckpt_every=1000),
+            crash, dataclasses.replace(adamw, steps=SHARD_LM_ADAMW_STEPS), s_samples),
+            backend="gloo", device="cuda", timeout=900)
+        t_ranks = time.perf_counter() - t0
+        r0 = ranks[0]
+        loss_err = max(abs(a - b) for a, b in zip(r0["sgd"]["losses"], sref_run["losses"]))
+        state_err = max(r["sgd"]["diff"] for r in ranks)
+        replayed = SHARD_LM_FAIL - SHARD_LM_FAIL // SHARD_LM_CKPT * SHARD_LM_CKPT
+        for r in ranks:
+            launches_ok(r["sgd"], steps)
+            launches_ok(r["crash"], steps + replayed)
+            launches_ok(r["adamw"], SHARD_LM_ADAMW_STEPS)
+            for label in ("sgd", "adamw"):
+                assert r[label]["losses"] == r0[label]["losses"]
+            losses = r["crash"]["losses"]
+            resumed = losses[:SHARD_LM_FAIL] + losses[SHARD_LM_FAIL + replayed:]
+            assert resumed == r0["sgd"]["losses"] and r["crash"]["same_state"], r["rank"]
+        assert loss_err <= SHARD_ATOL and state_err <= SHARD_ATOL, (loss_err, state_err)
+        a_loss = max(abs(a - b) for a, b in zip(r0["adamw"]["losses"], ref_run["losses"]))
+        print(f"[22c gloo data=2 x model=2] smollm-360m batch {LM_B} x {LM_S}, 4 ranks "
+              f"sharing card 0 (coords {[r['coords'] for r in ranks]}, batch rows "
+              f"{[r['rows'] for r in ranks]}), SGD lr {SHARD_LM_SGD_LR:g}: {steps} steps "
+              f"from train_lm's init with the attention conditioned, resumed from a "
+              f"step-0 checkpoint ({r0['sgd']['logs']}): losses max abs diff "
+              f"{loss_err:.3e}, sampled state {state_err:.3e} against the unsharded run "
+              f"(tol {SHARD_ATOL:g}; the state moved by up to {s_moved:.3e}; unsharded: "
+              f"{run_line(sref_run)}); {ranks_line(ranks, 'sgd')} | {card}", flush=True)
+        print(f"[22c crash] the same run with checkpoints every {SHARD_LM_CKPT} steps "
+              f"and a failure at step {SHARD_LM_FAIL} on every rank "
+              f"({r0['crash']['logs']}; {len(r0['crash']['losses'])} losses logged): "
+              f"losses and every rank's slices equal the uninterrupted run bit for "
+              f"bit: True; {ranks_line(ranks, 'crash')} | {card}", flush=True)
+        print(f"[22c adamw] the same mesh with AdamW lr {LM_LR} from train_lm's init, "
+              f"{SHARD_LM_ADAMW_STEPS} steps: losses "
+              f"{[round(x, 6) for x in r0['adamw']['losses']]}, max abs diff {a_loss:.3e} "
+              f"from 22a's unsharded AdamW run (AdamW's first step is lr times the sign "
+              f"of each gradient element); {ranks_line(ranks, 'adamw')}; the four "
+              f"ranks' call took {t_ranks:.1f} s | {card}", flush=True)
+
+        # ---- 22c: the 4-rank SGD checkpoint, continued by one process ---------------
+        elastic = os.path.join(work, "elastic")
+        name = f"step_{SHARD_LM_CKPT:08d}"
+        shutil.copytree(os.path.join(work, "crash", name), os.path.join(elastic, name))
+        logs = []
+        state, losses = trainer.train_lm(cfg, opts, dataclasses.replace(
+            sgd, ckpt_dir=elastic, ckpt_every=1000), device=dev, log=logs.append)
+        loss_err = max(abs(a - b) for a, b in zip(losses,
+                                                   sref_run["losses"][SHARD_LM_CKPT:]))
+        state_err = sampled_diff(state.params, s_samples)
+        assert logs == [f"[trainer] resumed from step {SHARD_LM_CKPT}"], logs
+        assert len(losses) == steps - SHARD_LM_CKPT
+        assert loss_err <= SHARD_ATOL and state_err <= SHARD_ATOL, (loss_err, state_err)
+        print(f"[22c elastic] 22c's step-{SHARD_LM_CKPT} checkpoint (saved by 4 ranks, "
+              f"the unsharded layout) restored by one process and trained to step "
+              f"{steps}: losses max abs diff {loss_err:.3e}, sampled state "
+              f"{state_err:.3e} against the unsharded run | {card}", flush=True)
+        del state, s_samples
+        torch.cuda.empty_cache()
+
+    # ---- 22d: the CLI ----------------------------------------------------------------
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
+    t0 = time.perf_counter()
+    cli = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch", "smollm-360m",
+         "--steps", str(SHARD_LM_CLI_STEPS), "--steps-per-dispatch",
+         str(SHARD_LM_CLI_STEPS), "--backend", "pallas", "--mesh", "host",
+         "--mesh-data", "2", "--dist-backend", "gloo"],
+        capture_output=True, text=True, timeout=300,
+        env=dict(os.environ, PYTHONPATH=src))
+    assert cli.returncode == 0, cli.stderr[-3000:]
+    lines = [l for l in cli.stdout.splitlines() if l.startswith(("[launch]", "done:"))]
+    assert any("devices=2" in l for l in lines), cli.stdout
+    assert any(l.startswith(f"done: {SHARD_LM_CLI_STEPS} steps") for l in lines), cli.stdout
+    print(f"[22d cli] launch.train --arch smollm-360m --backend pallas --mesh host "
+          f"--mesh-data 2 --dist-backend gloo (batch 8 x 64, {SHARD_LM_CLI_STEPS} steps) "
+          f"in {time.perf_counter() - t0:.1f} s: {' / '.join(lines)} | {card}", flush=True)
+    secs = time.perf_counter() - t_phase
+    print(f"[22 lm shard] phase 22 took {secs:.1f} s | {card}", flush=True)
+    return secs
 
 
 def main() -> int:
@@ -2999,9 +3482,11 @@ def main() -> int:
     kernels += families_phase(dev, card, flush, counters)
     torch.cuda.empty_cache()
     kernels += audio_phase(dev, card, flush, counters)
+    torch.cuda.empty_cache()
+    t_lm_shard = lm_sharding_phase(dev, card, counters)
 
-    print(f"[total] all 21 phases in {time.perf_counter() - t_start:.1f} s (phase 18: "
-          f"{t_shard:.1f} s) | {card}", flush=True)
+    print(f"[total] all 22 phases in {time.perf_counter() - t_start:.1f} s (phase 18: "
+          f"{t_shard:.1f} s, phase 22: {t_lm_shard:.1f} s) | {card}", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)
     # The run uses one card (card 0), whatever else the machine exposes.

@@ -12,7 +12,13 @@ softmax with SimpleX/HEAT training of the output embeddings —
                 cosine similarities, Eq. 3).
 
 Every gather goes through the live table (``tiling.gather_rows``, whose
-backward sums duplicates in a fixed order), so gradients reach it.  With
+backward sums duplicates in a fixed order), so gradients reach it.  Under a
+mesh whose model axis splits the vocab rows the table is a
+``sharding.ShardedRows``: the positive and negative gathers are
+owner-masked lookups over the model group, the draws range over the whole
+vocabulary (its ``shape``), so every rank draws the negatives and the tile
+of the unsharded run, and ``in_batch`` draws from the whole batch's
+targets, gathered over the data group.  With
 ``backend="pallas"`` the loss runs the shared-layout CUDA kernels
 (``kernels/ops.py::make_ccl_loss_shared_kernel``).
 
@@ -30,7 +36,8 @@ import torch
 from repro_torch.core import samplers
 from repro_torch.core.engine import SampleContext, StepEngine, resolve_engine
 from repro_torch.core.mf import NEG_SALT, TILE_SALT, fold_in, generator
-from repro_torch.core.tiling import gather_rows
+from repro_torch.distributed import sharding
+from repro_torch.optim import quantization as qz
 
 
 class HeatHeadConfig(NamedTuple):
@@ -49,8 +56,8 @@ class HeatHeadConfig(NamedTuple):
 def sampled_ccl_loss(hidden, targets, out_table, rng: int, cfg: HeatHeadConfig,
                      tile: Optional[samplers.TileState] = None, mask=None, *,
                      engine: Optional[StepEngine] = None):
-    """hidden (B, S, D), targets (B, S) int64, out_table (V, D) ->
-    ``(loss, new_tile)``.
+    """hidden (B, S, D), targets (B, S) int64, out_table (V, D) (or a
+    ``sharding.ShardedRows``) -> ``(loss, new_tile)``.
 
     The loss and the negative draw go through the engine registries
     (``cfg.backend``/``cfg.sampler``; ``engine`` overrides); the sampler
@@ -62,10 +69,15 @@ def sampled_ccl_loss(hidden, targets, out_table, rng: int, cfg: HeatHeadConfig,
     b, s, d = hidden.shape
     h = hidden.reshape(b * s, d)
     tgt = targets.reshape(b * s)
-    pos_e = gather_rows(out_table, tgt)                          # (T, D)
+    pos_e = qz.gather_rows(out_table, tgt)                       # (T, D)
     dev = hidden.device
+    pos_ids = tgt
+    mesh = sharding.active_mesh()
+    if engine.sampler_name == "in_batch" and mesh is not None:
+        pos_ids = sharding.all_gather_rows(
+            tgt, mesh.group(sharding.DATA_AXES))
     drawn = engine.sampler.sample(
-        SampleContext(table=out_table, tile=tile, pos_ids=tgt),
+        SampleContext(table=out_table, tile=tile, pos_ids=pos_ids),
         generator(fold_in(rng, NEG_SALT), dev), (cfg.num_negatives,))
     m = mask.reshape(b * s) if mask is not None else None
     loss = engine.loss_fn(h, pos_e, drawn.embs, mu=cfg.mu, theta=cfg.theta,

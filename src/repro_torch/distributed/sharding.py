@@ -31,6 +31,16 @@ are explicit:
     in group order on every rank.  No ``all_reduce`` is used, so the
     replicas hold the same bits whatever order a backend sums in.
 
+The LM's sharded step differentiates through its exchanges, so these have
+autograd forms: :func:`copy_to` (identity forward, sum over the group
+backward) and :func:`reduce_from` (sum forward, identity backward), the
+pair around the expert-parallel MoE; :func:`gather_leaves`, the all-gather
+of sharded parameter slices whose backward slices the gradient (a ``model``
+group, whose ranks compute the same gradient) or sums it over the group
+first (a data group, whose ranks see other rows: a reduce-scatter); and
+:func:`row_lookup`, the owner-masked lookup whose gradient lands only in
+the owner's rows (:class:`ShardedRows`, the vocab tables).
+
 Gloo cannot address CUDA memory for an all-gather, so a gloo group stages
 CUDA tensors through the host (two ranks sharing one card run gloo; NCCL
 refuses two ranks on one card).  A group of one rank exchanges nothing.
@@ -42,7 +52,7 @@ import dataclasses
 import datetime
 import itertools
 import math
-from typing import Any, Optional, Sequence
+from typing import Any, NamedTuple, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -89,6 +99,12 @@ class AxisGroup:
     def size(self) -> int:
         """Number of ranks in the group."""
         return len(self.ranks)
+
+    @property
+    def over_data(self) -> bool:
+        """Whether the group spans a data axis (its ranks hold other batch
+        rows, so their gradients are partial sums)."""
+        return any(a in DATA_AXES for a in self.axes)
 
 
 class Mesh:
@@ -396,3 +412,168 @@ class RowShard:
         most = max(hi - lo for lo, hi in bounds)
         parts = all_gather_parts([pad_rows(local, most)], self.group)
         return torch.cat([p[0][:hi - lo] for p, (lo, hi) in zip(parts, bounds)])
+
+
+def all_gather_cat(x: torch.Tensor, dim: int, group: AxisGroup) -> torch.Tensor:
+    """Every member's ``x`` (the same shape on each) concatenated along
+    ``dim`` in group order (no autograd)."""
+    if group.size == 1:
+        return x
+    return torch.cat([p[0] for p in all_gather_parts([x], group)], dim)
+
+
+def all_gather_rows(x: torch.Tensor, group: AxisGroup, offset: bool = False):
+    """Every member's rows ``x`` (the row counts may differ) concatenated
+    in group order (no autograd): the counts travel first.  With
+    ``offset``, returns ``(rows, the index of this member's first row)``."""
+    if group.size == 1:
+        return (x, 0) if offset else x
+    n = torch.tensor([x.shape[0]], dtype=torch.int64, device=x.device)
+    counts = [int(c[0][0]) for c in all_gather_parts([n], group)]
+    parts = all_gather_parts([pad_rows(x, max(counts))], group)
+    rows = torch.cat([p[0][:c] for p, c in zip(parts, counts)])
+    return (rows, sum(counts[:group.index])) if offset else rows
+
+
+def _own_slice(x: torch.Tensor, dim: int, group: AxisGroup) -> torch.Tensor:
+    n = x.shape[dim] // group.size
+    return x.narrow(dim, group.index * n, n)
+
+
+def _gather_stage(xs: list, plans: list, stage) -> list:
+    """One exchange per group, in ``stage`` order: every (tensor, dim)
+    sharded over that group is all-gathered in one collective."""
+    out = list(xs)
+    for key in stage:
+        hits = [(i, d, g) for i, plan in enumerate(plans) for d, g in plan
+                if g.axes == key]
+        if not hits:
+            continue
+        group = hits[0][2]
+        got = all_gather_parts([out[i].contiguous() for i, _, _ in hits],
+                               group)
+        for j, (i, d, _) in enumerate(hits):
+            out[i] = torch.cat([m[j] for m in got], d)
+    return out
+
+
+def _group_order(plans: list) -> list:
+    keys = []
+    for plan in plans:
+        for _, g in plan:
+            if g.axes not in keys:
+                keys.append(g.axes)
+    return keys
+
+
+class _GatherLeaves(torch.autograd.Function):
+    """Whole tensors from sharded slices; see :func:`gather_leaves`."""
+
+    @staticmethod
+    def forward(ctx, plans, *xs):
+        ctx.plans = plans
+        return tuple(_gather_stage(list(xs), plans, _group_order(plans)))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        plans = ctx.plans
+        grads = list(grads)
+        for key in reversed(_group_order(plans)):
+            hits = [(i, d, g) for i, plan in enumerate(plans) for d, g in plan
+                    if g.axes == key]
+            group = hits[0][2]
+            if group.over_data:          # ranks of other rows: sum first
+                summed = sum_over([grads[i] for i, _, _ in hits], group)
+                for (i, _, _), s in zip(hits, summed):
+                    grads[i] = s
+            for i, d, _ in hits:
+                grads[i] = _own_slice(grads[i], d, group).contiguous()
+        return (None, *grads)
+
+
+def gather_leaves(xs: Sequence[torch.Tensor], plans: Sequence) -> list:
+    """The whole tensors of sharded slices ``xs``; ``plans[i]`` lists
+    ``(dim, group)`` of each sharded dimension of ``xs[i]``.  One
+    collective per group for all tensors.  Backward: the gradient of a
+    dimension sharded over ``model`` is sliced (every model rank computed
+    the same whole gradient), that of one sharded over a data group is
+    summed over the group and then sliced (a reduce-scatter)."""
+    return list(_GatherLeaves.apply(list(plans), *xs))
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return sum_over([g.contiguous()], ctx.group)[0], None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return sum_over([x.contiguous()], group)[0]
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to(x: torch.Tensor, group: AxisGroup) -> torch.Tensor:
+    """Identity forward; backward sums the gradient over ``group``: the
+    entry of a replicated value into per-rank partial work."""
+    return x if group.size == 1 else _CopyTo.apply(x, group)
+
+
+def reduce_from(x: torch.Tensor, group: AxisGroup) -> torch.Tensor:
+    """Sum over ``group`` forward (group order, the same bits on every
+    member); identity backward: the exit of per-rank partial results."""
+    return x if group.size == 1 else _ReduceFrom.apply(x, group)
+
+
+class _RowLookup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, local, ids, shard):
+        ctx.save_for_backward(ids)
+        ctx.shard, ctx.rows = shard, local.shape[0]
+        return shard.lookup(local, ids)
+
+    @staticmethod
+    def backward(ctx, g):
+        (ids,) = ctx.saved_tensors
+        lo, hi = ctx.shard.own
+        idx = torch.where((ids >= lo) & (ids < hi), ids - lo, ctx.rows)
+        return (tiling.segment_sum(idx.reshape(-1),
+                                   g.reshape(-1, g.shape[-1]), ctx.rows),
+                None, None)
+
+
+def row_lookup(local: torch.Tensor, ids: torch.Tensor,
+               shard: RowShard) -> torch.Tensor:
+    """:meth:`RowShard.lookup` with autograd: the gradient of each row
+    lands in its owner's ``local`` rows only (summed in id order, no
+    atomics), the others' parts get none."""
+    if shard.group.size == 1:
+        return tiling.gather_rows(local, ids)
+    return _RowLookup.apply(local, ids, shard)
+
+
+class ShardedRows(NamedTuple):
+    """A table whose rows are split over ``shard``'s group, as the sampled
+    head and the samplers see it: ``shape`` is the whole table's, so draws
+    range over every row, and ``lookup`` is :func:`row_lookup`."""
+
+    local: torch.Tensor
+    shard: RowShard
+
+    @property
+    def shape(self) -> tuple:
+        """The whole table's shape."""
+        return (self.shard.num_rows,) + tuple(self.local.shape[1:])
+
+    def lookup(self, ids: torch.Tensor) -> torch.Tensor:
+        """Rows ``ids`` of the whole table (:func:`row_lookup`)."""
+        return row_lookup(self.local, ids, self.shard)

@@ -21,6 +21,9 @@ meshes shard the MF model).
     PYTHONPATH=src python -m repro_torch.launch.train --mf --steps 4 \\
         --batch 1024 --backend pallas --update-impl pallas --mesh host \\
         --mesh-data 2 --dist-backend gloo   # 2 ranks sharing one card
+    PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \\
+        --reduced --steps 4 --mesh host --mesh-data 2 --mesh-model 2 \\
+        --device cpu                        # the LM on 4 gloo ranks
 
 Without ``--mf`` it trains the LM named by ``--arch`` (any architecture of
 ``configs/``; default smollm-360m) with the HEAT vocab head (``--loss
@@ -31,15 +34,15 @@ audio model's ``encoder_seq`` frames (fp32, ``lm_batch(extras=)``), as the
 reference's do.  Runs on the card unless ``--device cpu`` is given; with no
 CUDA device it exits with an error instead of falling back.
 
-``--mesh`` shards the MF model (``core/mf_distributed.py``): ``host`` over
-``--mesh-data`` x ``--mesh-model`` ranks, ``data`` data-parallel over
-``--mesh-data`` ranks (every card when it is 1), ``production`` over the
-256-rank pod mesh.  The CLI starts the ranks itself
+``--mesh`` shards the model, the MF model (``core/mf_distributed.py``) or
+the LM (``models/lm_distributed.py``): ``host`` over ``--mesh-data`` x
+``--mesh-model`` ranks, ``data`` data-parallel over ``--mesh-data`` ranks
+(every card when it is 1), ``production`` over the 256-rank pod mesh.  The CLI starts the ranks itself
 (``launch/mesh.py::run_ranks``) unless it already runs as one rank of
 ``torchrun`` (``RANK`` and ``WORLD_SIZE`` set).  ``--dist-backend`` is the
 one flag the reference lacks: ``nccl`` (the default on the card) needs a
 card per rank, ``gloo`` (the default on the CPU) also runs ranks that share
-a card.  LM sharding waits for a later slice.
+a card.  Rank 0 prints the run's lines.
 """
 from __future__ import annotations
 
@@ -112,24 +115,26 @@ def main(argv=None):
         ap.error(str(e))
     torchrun = "RANK" in os.environ and "WORLD_SIZE" in os.environ
     ranks = _mesh_ranks(args, device)
-    if not args.mf and (torchrun or ranks > 1):
-        ap.error("a mesh shards the MF model only (--mf); LM sharding waits "
-                 "for a later slice")
-    if args.mf and torchrun:
+    if not args.mf:
+        _lm_config(args, device, ap, announce=False)    # flags fail early
+    if torchrun:
         losses = _torchrun_rank(args, device)
         if int(os.environ["RANK"]) != 0:
             return
-    elif args.mf and args.mesh == "production":
+    elif args.mesh == "production":
         from repro_torch.launch.mesh import make_production_mesh
         try:
             make_production_mesh()
         except RuntimeError as e:
             ap.error(str(e))
         ap.error("--mesh production runs as one rank of torchrun")
-    elif args.mf and ranks > 1:
+    elif ranks > 1:
         from repro_torch.launch.mesh import run_ranks
-        _mf_config(args, device, ranks)
-        losses = run_ranks(_mf_rank, ranks, args=(args, device.type),
+        if args.mf:
+            _mf_config(args, device, ranks)
+        else:
+            _lm_config(args, device, ap, ranks=ranks)
+        losses = run_ranks(_rank, ranks, args=(args, device.type),
                            backend=_backend(args, device),
                            device=device.type)[0]
     elif args.mf:
@@ -168,14 +173,15 @@ def _make_mesh(args):
     return make_host_mesh(args.mesh_data, args.mesh_model)
 
 
-def _mf_rank(args, device: str) -> list:
+def _rank(args, device: str) -> list:
     """One rank of a sharded CLI run (started by ``run_ranks``): rank 0
     logs; returns the losses."""
     import torch.distributed as dist
 
     from repro_torch.launch.mesh import rank_device
     quiet = dist.get_rank() != 0
-    return _train_mf(args, rank_device(device), _make_mesh(args), quiet=quiet)
+    train = _train_mf if args.mf else _train_lm
+    return train(args, rank_device(device), mesh=_make_mesh(args), quiet=quiet)
 
 
 def _torchrun_rank(args, device) -> list:
@@ -194,9 +200,13 @@ def _torchrun_rank(args, device) -> list:
         seconds=COLLECTIVE_TIMEOUT_S))
     try:
         mesh = _make_mesh(args)
-        if rank == 0:
+        if rank == 0 and args.mf:
             _mf_config(args, device, world)
-        return _train_mf(args, rank_device(device.type), mesh, quiet=rank != 0)
+        elif rank == 0:
+            _lm_config(args, device, ranks=world)
+        train = _train_mf if args.mf else _train_lm
+        return train(args, rank_device(device.type), mesh=mesh,
+                     quiet=rank != 0)
     finally:
         dist.destroy_process_group()
 
@@ -242,15 +252,17 @@ def _train_mf(args, device, mesh=None, quiet: bool = False) -> list:
     return losses
 
 
-def _train_lm(args, device, ap) -> list:
+def _lm_config(args, device, ap=None, ranks: int = 1, announce: bool = True):
+    """The LM config the flags name (with the HEAT head's engine
+    overrides); prints the head's engine line when ``announce``."""
     from repro_torch.configs import get_config
     from repro_torch.core.engine import resolve_engine
-    from repro_torch.models import lm
-    from repro_torch.train import trainer
 
     try:
         cfg = get_config(args.arch)
     except ValueError as e:
+        if ap is None:
+            raise
         ap.error(str(e))
     if args.reduced:
         cfg = cfg.reduced()
@@ -259,9 +271,19 @@ def _train_lm(args, device, ap) -> list:
     if heat_over:
         cfg = dataclasses.replace(
             cfg, heat=dataclasses.replace(cfg.heat, **heat_over))
-    if args.loss == "heat":
+    if announce and args.loss == "heat":
         print(f"[launch] LM head engine: {resolve_engine(cfg.heat).name} "
-              f"(device={device})")
+              f"(devices={ranks}, device={device})", flush=True)
+    return cfg
+
+
+def _train_lm(args, device, ap=None, mesh=None, quiet: bool = False) -> list:
+    """Train the LM (on this rank's slices under ``mesh``, whose launcher
+    printed the engine line); ``quiet`` drops the logs."""
+    from repro_torch.models import lm
+    from repro_torch.train import trainer
+
+    cfg = _lm_config(args, device, ap, announce=mesh is None)
     opts = lm.TrainOptions(loss=args.loss, remat=args.remat,
                            attn_chunk=min(1024, args.seq))
     tcfg = trainer.TrainerConfig(
@@ -269,14 +291,15 @@ def _train_lm(args, device, ap) -> list:
         seq_len=args.seq, optimizer=args.optimizer,
         grad_accum=args.grad_accum, ckpt_dir=args.ckpt_dir,
         ckpt_every=args.ckpt_every, fail_at_step=args.fail_at_step,
-        steps_per_dispatch=args.steps_per_dispatch)
+        steps_per_dispatch=args.steps_per_dispatch, mesh=mesh)
     extras = None
     if cfg.family in ("audio", "vlm"):
         import torch
         name, rows = (("frames", cfg.encoder_seq) if cfg.family == "audio"
                       else ("patches", cfg.num_patches))
         extras = {name: ((args.batch, rows, cfg.d_model), torch.float32)}
-    _, losses = trainer.train_lm(cfg, opts, tcfg, extras, device=device)
+    _, losses = trainer.train_lm(cfg, opts, tcfg, extras, device=device,
+                                 log=(lambda *_: None) if quiet else print)
     return losses
 
 

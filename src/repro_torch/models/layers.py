@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.config import ArchConfig
+from repro_torch.distributed.sharding import P
 from repro_torch.models.params import ParamDef
 
 NEG_INF = -1e30
@@ -39,12 +40,12 @@ def mlp_defs(cfg: ArchConfig, n_layers: int) -> dict:
     """ParamDefs of the MLP for ``n_layers`` stacked layers (0: unstacked)."""
     d, f = cfg.d_model, cfg.d_ff
     lead = (n_layers,) if n_layers else ()
+    sl = (None,) * len(lead)
+    up = ParamDef(lead + (d, f), "scaled_fan_in", spec=P(*sl, None, "model"))
+    down = ParamDef(lead + (f, d), "scaled_fan_in", spec=P(*sl, "model", None))
     if cfg.mlp_kind == "swiglu":
-        return {"w_gate": ParamDef(lead + (d, f), "scaled_fan_in"),
-                "w_up": ParamDef(lead + (d, f), "scaled_fan_in"),
-                "w_down": ParamDef(lead + (f, d), "scaled_fan_in")}
-    return {"w_up": ParamDef(lead + (d, f), "scaled_fan_in"),
-            "w_down": ParamDef(lead + (f, d), "scaled_fan_in")}
+        return {"w_gate": up, "w_up": up, "w_down": down}
+    return {"w_up": up, "w_down": down}
 
 
 def mlp_apply(p: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
@@ -106,10 +107,14 @@ def attn_defs(cfg: ArchConfig, n_layers: int) -> dict:
     """ParamDefs of the attention projections for ``n_layers`` layers."""
     d, hq, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     lead = (n_layers,) if n_layers else ()
-    return {"wq": ParamDef(lead + (d, hq, hd), "scaled_fan_in"),
-            "wk": ParamDef(lead + (d, hkv, hd), "scaled_fan_in"),
-            "wv": ParamDef(lead + (d, hkv, hd), "scaled_fan_in"),
-            "wo": ParamDef(lead + (hq, hd, d), "scaled_fan_in")}
+    sl = (None,) * len(lead)
+    m = "model" if cfg.attn_tp else None
+    proj = P(*sl, None, m, None)
+    return {"wq": ParamDef(lead + (d, hq, hd), "scaled_fan_in", spec=proj),
+            "wk": ParamDef(lead + (d, hkv, hd), "scaled_fan_in", spec=proj),
+            "wv": ParamDef(lead + (d, hkv, hd), "scaled_fan_in", spec=proj),
+            "wo": ParamDef(lead + (hq, hd, d), "scaled_fan_in",
+                           spec=P(*sl, m, None, None))}
 
 
 def repeat_kv(x: torch.Tensor, groups: int) -> torch.Tensor:

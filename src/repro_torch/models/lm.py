@@ -44,6 +44,13 @@ Entry points:
 
 ``prefill`` and ``decode_step`` run without autograd, on the card unless
 given ``device="cpu"``.
+
+Under a mesh (``models/lm_distributed.py``) the parameters arrive as this
+rank's slices (``params.Shard``): each block makes its layer's leaves
+whole with one ``params.use_tree`` exchange (inside the remat unit, so the
+recompute gathers again), the MoE experts stay split
+(``moe.moe_apply``), and the vocab tables are read through owner-masked
+lookups (:func:`vocab_table`).
 """
 from __future__ import annotations
 
@@ -60,7 +67,8 @@ from repro_torch.core.heat_head import (
     full_softmax_loss,
     sampled_ccl_loss,
 )
-from repro_torch.core.tiling import gather_rows
+from repro_torch.distributed import sharding
+from repro_torch.distributed.sharding import P
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ArchConfig
@@ -77,10 +85,17 @@ from repro_torch.models.layers import (
 )
 from repro_torch.models.params import (
     ParamDef,
+    Shard,
+    fsdpify,
     materialize,
+    partition_specs,
     tree_from_items,
     tree_items,
+    unbind_leaf,
+    use,
+    use_tree,
 )
+from repro_torch.optim import quantization as qz
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 
@@ -114,7 +129,7 @@ def _check_family(cfg: ArchConfig) -> None:
 
 def _norm_def(n_layers: int, d: int) -> ParamDef:
     lead = (n_layers,) if n_layers else ()
-    return ParamDef(lead + (d,), "ones")
+    return ParamDef(lead + (d,), "ones", spec=P(*(None,) * len(lead), None))
 
 
 def _dense_block_defs(cfg: ArchConfig, L: int) -> dict:
@@ -154,10 +169,11 @@ def model_defs(cfg: ArchConfig) -> dict:
     """The architecture's ParamDef tree."""
     _check_family(cfg)
     d, v = cfg.d_model, cfg.vocab
-    defs = {"embed": ParamDef((v, d), "normal", 0.02),
+    rows = P("model", None)
+    defs = {"embed": ParamDef((v, d), "normal", 0.02, rows),
             "final_norm": _norm_def(0, d)}
     if not cfg.tie_embeddings:
-        defs["out_embed"] = ParamDef((v, d), "normal", 0.02)
+        defs["out_embed"] = ParamDef((v, d), "normal", 0.02, rows)
     if _interleaved(cfg):
         g = num_groups(cfg)
         defs["blocks"] = {"dense": _dense_block_defs(cfg, g * (cfg.moe_every - 1)),
@@ -178,14 +194,22 @@ def model_defs(cfg: ArchConfig) -> dict:
         defs["blocks"] = dec
     else:
         defs["blocks"] = _dense_block_defs(cfg, cfg.n_layers)
+    if cfg.fsdp:
+        defs = fsdpify(defs, sharding.data_shards())
     return defs
 
 
 def init_params(key: int, cfg: ArchConfig, dtype=torch.float32,
-                device=None) -> dict:
+                device=None, mesh=None) -> dict:
     """Materialize :func:`model_defs` from the integer key on ``device``
-    (the card unless the caller names another)."""
-    return materialize(key, model_defs(cfg), dtype, mf.resolve_device(device))
+    (the card unless the caller names another).  Under ``mesh`` each leaf
+    is this rank's slice of the unsharded init's leaf
+    (``partition_specs(model_defs(cfg), mesh.shape)``), made one leaf at a
+    time."""
+    defs = model_defs(cfg)
+    specs = None if mesh is None else partition_specs(defs, mesh.shape)
+    return materialize(key, defs, dtype, mf.resolve_device(device),
+                       specs=specs, mesh=mesh)
 
 
 def _positions(cfg: ArchConfig, batch: int, seq: int, device,
@@ -226,6 +250,7 @@ def _attn_block(lp: dict, h, cos, sin, cfg: ArchConfig, opts: TrainOptions,
     encoder's (k, v), after ``ln_x``] + (MLP | MoE) with residuals; returns
     ``(h, kv)`` (:func:`~repro_torch.models.layers.attn_apply`'s ``kv``).
     ``causal=False`` is the audio encoder's self-attention."""
+    lp = use_tree(lp, skip=("moe",))
     a, kv = attn_apply(lp["attn"], rms_norm(h, lp["ln1"], cfg.norm_eps), cos,
                        sin, cfg, causal=causal, cache=cache, pos=pos,
                        attn_chunk=opts.attn_chunk,
@@ -247,6 +272,7 @@ def _mamba_block(lp: dict, h, cfg: ArchConfig, cache=None):
     layer's final :class:`~repro_torch.models.ssm.MambaCache` (train,
     prefill), or with ``cache`` given (decode, h (B, 1, d)) the advanced
     one."""
+    lp = use_tree(lp)
     hn = rms_norm(h, lp["ln"], cfg.norm_eps)
     if cache is None:
         y, mc = ssm_mod.mamba_apply(lp["mamba"], hn, cfg)
@@ -261,6 +287,7 @@ def _shared_block(sp: dict, h, cos, sin, cfg: ArchConfig, opts: TrainOptions,
     shared MLP (pre-norm, residuals); returns ``(h, kv)``.  The attention
     takes ``probs_dtype`` but not ``attn_acc_dtype``, as the reference's
     hybrid group does."""
+    sp = use_tree(sp)
     a, kv = attn_apply(sp["attn"], rms_norm(h, sp["ln1"], cfg.norm_eps), cos,
                        sin, cfg, causal=True, cache=cache, pos=pos,
                        attn_chunk=opts.attn_chunk, probs_dtype=opts.probs_dtype)
@@ -284,8 +311,9 @@ def _maybe_remat(fn, opts: TrainOptions):
 
 def _layers(blocks: dict, n_layers: int) -> list[dict]:
     """The stacked (L, ...) block tree as L per-layer trees (one ``unbind``
-    per leaf)."""
-    items = [(path, leaf.unbind(0)) for path, leaf in tree_items(blocks)]
+    per leaf; a :class:`~repro_torch.models.params.Shard` leaf unbinds its
+    slice, which each block makes whole with ``use_tree`` when it runs)."""
+    items = [(path, unbind_leaf(leaf)) for path, leaf in tree_items(blocks)]
     return [tree_from_items([(path, parts[i]) for path, parts in items])
             for i in range(n_layers)]
 
@@ -339,7 +367,7 @@ def _run_stack(params: dict, h, cfg: ArchConfig, opts: TrainOptions,
                          "decode")
     if cfg.family in ("ssm", "hybrid"):
         h, new_cache = _run_mamba_stack(params, h, cfg, opts, mode, cache, pos)
-        return rms_norm(h, params["final_norm"], cfg.norm_eps), new_cache
+        return rms_norm(h, use(params["final_norm"]), cfg.norm_eps), new_cache
     b, s = h.shape[0], h.shape[1]
     decode = mode == "decode"
     audio = cfg.family == "audio"
@@ -352,13 +380,14 @@ def _run_stack(params: dict, h, cfg: ArchConfig, opts: TrainOptions,
 
     if mode == "train":
         def block(lp, x, mem, moe):
+            lp = use_tree(lp, skip=("moe",))
             mem_kv = None if mem is None else encoder_kv(lp["cross"], mem)
             return _attn_block(lp, x, cos, sin, cfg, opts, moe=moe,
                                memory_kv=mem_kv)[0]
         body = _maybe_remat(block, opts)
         for lp, moe, _, _ in plan:
             h = body(lp, h, memory, moe)
-        return rms_norm(h, params["final_norm"], cfg.norm_eps), None
+        return rms_norm(h, use(params["final_norm"]), cfg.norm_eps), None
 
     if decode:
         members = list(cache.kv) if _interleaved(cfg) else [cache.kv]
@@ -392,7 +421,7 @@ def _run_stack(params: dict, h, cfg: ArchConfig, opts: TrainOptions,
     kv = tuple(members) if _interleaved(cfg) else members[0]
     new_cache = (cache._replace(kv=kv) if decode
                  else DecodeCache(kv=kv, cross_kv=cross))
-    return rms_norm(h, params["final_norm"], cfg.norm_eps), new_cache
+    return rms_norm(h, use(params["final_norm"]), cfg.norm_eps), new_cache
 
 
 def _run_mamba_stack(params: dict, h, cfg: ArchConfig, opts: TrainOptions,
@@ -457,11 +486,28 @@ def _run_mamba_stack(params: dict, h, cfg: ArchConfig, opts: TrainOptions,
     return h, DecodeCache(mamba=mamba, shared_kv=skv)
 
 
+def vocab_table(leaf):
+    """An LM vocab table as the lookups see it: the tensor, or under a
+    mesh whose model axis splits its rows a
+    :class:`~repro_torch.distributed.sharding.ShardedRows` (its other
+    sharded dimensions gathered), whose lookups are owner-masked and whose
+    row count is the whole vocabulary's."""
+    if not isinstance(leaf, Shard):
+        return leaf
+    if leaf.spec[0] != sharding.MODEL_AXIS:
+        return use(leaf)
+    group = sharding.get_mesh().group(sharding.MODEL_AXIS)
+    local = use(leaf, keep=(0,))
+    return sharding.ShardedRows(local, sharding.RowShard(
+        group, local.shape[0] * group.size))
+
+
 def embed_inputs(params: dict, batch: dict, cfg: ArchConfig):
-    """Token embedding lookup (deterministic backward); for the VLM family
+    """Token embedding lookup (deterministic backward; owner-masked over
+    the model group when the vocab rows are sharded); for the VLM family
     the batch's ``patches`` (B, P, d) rows take the place of the first P
     positions."""
-    h = gather_rows(params["embed"], batch["tokens"])
+    h = qz.gather_rows(vocab_table(params["embed"]), batch["tokens"])
     if cfg.family == "vlm" and "patches" in batch:
         patches = batch["patches"].to(h.dtype)
         h = torch.cat([patches, h[:, patches.shape[1]:]], dim=1)
@@ -475,9 +521,12 @@ def _out_table(params: dict, cfg: ArchConfig):
 def head_loss(params: dict, h, labels, cfg: ArchConfig, opts: TrainOptions,
               rng: int, tile: Optional[samplers.TileState], mask=None):
     """Output-head loss: the CCL sampled head when enabled, else full-softmax
-    cross entropy; returns ``(loss, new_tile)``."""
+    cross entropy; returns ``(loss, new_tile)``.  Under a mesh the HEAT
+    head reads the table through :func:`vocab_table`; the softmax head
+    gathers it whole."""
     table = _out_table(params, cfg)
     if opts.loss == "heat" and cfg.heat.enabled:
+        table = vocab_table(table)
         hcfg = HeatHeadConfig(num_negatives=cfg.heat.num_negatives,
                               mu=cfg.heat.mu, theta=cfg.heat.theta,
                               tile_size=cfg.heat.tile_size,
@@ -486,7 +535,7 @@ def head_loss(params: dict, h, labels, cfg: ArchConfig, opts: TrainOptions,
         return sampled_ccl_loss(h, labels, table, rng, hcfg, tile, mask)
     if opts.loss not in ("heat", "softmax"):
         raise ValueError(f"unknown loss {opts.loss!r}; available: heat, softmax")
-    return full_softmax_loss(h, labels, table, mask), tile
+    return full_softmax_loss(h, labels, use(table), mask), tile
 
 
 def _memory(params: dict, batch: dict, cfg: ArchConfig, opts: TrainOptions):
@@ -524,7 +573,7 @@ def encode_audio(params: dict, frames, cfg: ArchConfig, opts: TrainOptions):
     h = frames
     for lp in _layers(params["encoder"], cfg.encoder_layers):
         h = body(lp, h)
-    return rms_norm(h, params["enc_norm"], cfg.norm_eps)
+    return rms_norm(h, use(params["enc_norm"]), cfg.norm_eps)
 
 
 class DecodeCache(NamedTuple):
@@ -553,10 +602,11 @@ def cache_defs(cfg: ArchConfig, batch: int, seq: int) -> DecodeCache:
     ``seq`` positions, in the layout :func:`prefill` returns."""
     _check_family(cfg)
     shape = (batch, seq, cfg.n_kv_heads, cfg.head_dim)
+    kv_spec = P(None, sharding.DATA_AXES, "model", None, None)
 
     def kv(n):
-        return KVCache(ParamDef((n,) + shape, "zeros"),
-                       ParamDef((n,) + shape, "zeros"))
+        return KVCache(ParamDef((n,) + shape, "zeros", spec=kv_spec),
+                       ParamDef((n,) + shape, "zeros", spec=kv_spec))
 
     if cfg.family == "ssm":
         return DecodeCache(mamba=_mamba_cache_defs(cfg, cfg.n_layers, batch))
@@ -567,8 +617,10 @@ def cache_defs(cfg: ArchConfig, batch: int, seq: int) -> DecodeCache:
         cross = (cfg.n_layers, batch, cfg.encoder_seq, cfg.n_kv_heads,
                  cfg.head_dim)
         return DecodeCache(kv=kv(cfg.n_layers),
-                           cross_kv=KVCache(ParamDef(cross, "zeros"),
-                                            ParamDef(cross, "zeros")))
+                           cross_kv=KVCache(ParamDef(cross, "zeros",
+                                                     spec=kv_spec),
+                                            ParamDef(cross, "zeros",
+                                                     spec=kv_spec)))
     members = [kv(n) for n in _kv_rows(cfg)]
     return DecodeCache(kv=tuple(members) if _interleaved(cfg) else members[0])
 
@@ -577,9 +629,12 @@ def _mamba_cache_defs(cfg: ArchConfig, L: int, batch: int):
     """ParamDefs (zeros) of L stacked Mamba caches for ``batch`` sequences:
     no dimension grows with the context."""
     d_in, h, p, g, s = ssm_mod._dims(cfg)
+    data = sharding.DATA_AXES
     return ssm_mod.MambaCache(
-        conv=ParamDef((L, batch, cfg.conv_width - 1, d_in + 2 * g * s), "zeros"),
-        state=ParamDef((L, batch, h, s, p), "zeros"))
+        conv=ParamDef((L, batch, cfg.conv_width - 1, d_in + 2 * g * s), "zeros",
+                      spec=P(None, data, None, None)),
+        state=ParamDef((L, batch, h, s, p), "zeros",
+                       spec=P(None, data, "model", None, None)))
 
 
 def pad_cache(cache: DecodeCache, cfg: ArchConfig, max_len: int) -> DecodeCache:

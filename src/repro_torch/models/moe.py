@@ -12,10 +12,12 @@ products.  Every rule is the reference's, line for line.
 
 :func:`_moe_local` keeps the reference's ``shard_idx`` / ``num_shards``: a
 model shard dispatches only the slots of its own ``E / num_shards``
-experts, and the shards' partial outputs sum to the whole.  The port has no
-LM mesh yet, so :func:`moe_apply` runs the one-shard path; the reference's
-``shard_map`` over the model axis (its ``psum``) waits for LM sharding
-(``ROADMAP.md`` A.5).
+experts, and the shards' partial outputs sum to the whole.  Under a mesh
+with a model axis :func:`moe_apply` runs that split, the counterpart of the
+reference's ``shard_map``; its ``psum`` (``sharding.reduce_from``) sums
+each slot's contribution before the slots of a token are summed, so the
+sharded layer gives the one-shard layer's bits; each rank's capacity
+counts its own data shard's tokens, as the reference's does.
 
 Determinism on the card: the dispatch writes each kept slot into its own
 buffer row (``index_copy``; every dropped slot writes zeros into the one
@@ -32,18 +34,21 @@ import torch.nn.functional as F
 
 from repro_torch.core.tiling import gather_rows
 from repro_torch.distributed import sharding
+from repro_torch.distributed.sharding import P
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.params import ParamDef
+from repro_torch.models.params import ParamDef, Shard, use
 
 
 def moe_defs(cfg: ArchConfig, n_layers: int) -> dict:
     """ParamDefs of the router and the expert stacks for ``n_layers`` MoE
     layers."""
     d, f, e, L = cfg.d_model, cfg.d_ff, cfg.moe_experts, n_layers
-    return {"router": ParamDef((L, d, e), "scaled_fan_in"),
-            "w_gate": ParamDef((L, e, d, f), "scaled_fan_in"),
-            "w_up": ParamDef((L, e, d, f), "scaled_fan_in"),
-            "w_down": ParamDef((L, e, f, d), "scaled_fan_in")}
+    experts = P(None, "model", None, None)
+    return {"router": ParamDef((L, d, e), "scaled_fan_in",
+                               spec=P(None, None, None)),
+            "w_gate": ParamDef((L, e, d, f), "scaled_fan_in", spec=experts),
+            "w_up": ParamDef((L, e, d, f), "scaled_fan_in", spec=experts),
+            "w_down": ParamDef((L, e, f, d), "scaled_fan_in", spec=experts)}
 
 
 def top_k_lowest_first(logits: torch.Tensor, k: int):
@@ -65,13 +70,27 @@ def capacity(tokens: int, top_k: int, experts: int,
 
 def _moe_local(router, w_gate, w_up, w_down, x, *, top_k: int,
                capacity_factor: float, shard_idx: int = 0,
-               num_shards: int = 1):
+               num_shards: int = 1, route_group=None, model_group=None):
     """Dispatch, expert products and combine of one model shard.
 
     x (B, S, d); ``router`` (d, E) whole; ``w_*`` (E / num_shards, d, f)
     or (E / num_shards, f, d), this shard's experts.  Returns this shard's
     part of the output, (B, S, d); the parts of all shards sum to the
-    output (the reference sums them with a ``psum`` inside)."""
+    output (the reference sums them with a ``psum`` inside).
+
+    ``route_group`` (a data group whose ranks hold the other rows of one
+    batch) makes the slots' positions and the capacity those of the whole
+    batch, as the reference's meshless layer counts them on a data-sharded
+    batch: the expert choices travel (integers only) and each rank keeps
+    its rows' slots.
+
+    ``model_group`` (the model group whose ranks hold the other experts,
+    ``shard_idx`` this rank's place in it) returns the whole output: each
+    slot's contribution is summed over the group (``reduce_from``) before
+    the k slots of a token are summed, and the slots' inputs and gates
+    enter through ``copy_to``.  A slot is nonzero on its expert's rank
+    only, so both sums are exact and the output and the gradients are the
+    one-shard layer's bits."""
     b, s, d = x.shape
     t = b * s
     e = router.shape[-1]
@@ -83,10 +102,15 @@ def _moe_local(router, w_gate, w_up, w_down, x, *, top_k: int,
     gates = torch.softmax(gates.float(), dim=-1).to(x.dtype)
 
     flat_e = eids.reshape(-1)                                    # (T*k,) token-major
-    onehot = F.one_hot(flat_e, e)
+    every_e, first, t_all = flat_e, 0, t
+    if route_group is not None and route_group.size > 1:
+        every, first = sharding.all_gather_rows(eids, route_group,
+                                                offset=True)
+        every_e, t_all, first = every.reshape(-1), every.shape[0], first * top_k
+    onehot = F.one_hot(every_e, e)
     pos_in_e = torch.gather(torch.cumsum(onehot, dim=0) - onehot, 1,
-                            flat_e[:, None])[:, 0]
-    cap = capacity(t, top_k, e, capacity_factor)
+                            every_e[:, None])[first:first + t * top_k, 0]
+    cap = capacity(t_all, top_k, e, capacity_factor)
 
     local = torch.div(flat_e, e_loc, rounding_mode="floor") == shard_idx
     keep = (pos_in_e < cap) & local
@@ -94,6 +118,10 @@ def _moe_local(router, w_gate, w_up, w_down, x, *, top_k: int,
     slot_c = torch.where(keep, pos_in_e, cap)                   # cap row = trash
 
     xk = xf[:, None, :].expand(t, top_k, d).reshape(t * top_k, d)
+    g = gates.reshape(-1)
+    if model_group is not None:
+        xk = sharding.copy_to(xk, model_group)
+        g = sharding.copy_to(g, model_group)
     rows = slot_e * (cap + 1) + slot_c
     buf = torch.zeros((e_loc * (cap + 1), d), dtype=x.dtype, device=x.device)
     buf = buf.index_copy(0, rows, torch.where(keep[:, None], xk, 0.0))
@@ -105,18 +133,38 @@ def _moe_local(router, w_gate, w_up, w_down, x, *, top_k: int,
 
     gathered = gather_rows(out_e.reshape(e_loc * cap, d),
                            slot_e * cap + torch.clamp_max(slot_c, cap - 1))
-    contrib = gathered * (keep[:, None] * gates.reshape(-1)[:, None])
+    contrib = gathered * (keep[:, None] * g[:, None])
+    if model_group is not None:
+        contrib = sharding.reduce_from(contrib, model_group)
     return contrib.reshape(t, top_k, d).sum(dim=1).reshape(b, s, d)
 
 
 def moe_apply(p: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     """p: one layer's ``{router (d, E), w_* (E, d, f) / (E, f, d)}``;
-    x (B, S, d).  The one-shard path; raises under a mesh with a model
-    axis, whose expert-parallel path waits for LM sharding."""
-    if sharding.model_shards() > 1:
-        raise NotImplementedError(
-            "expert-parallel MoE over a model axis waits for LM sharding "
-            "(ROADMAP.md A.5)")
-    return _moe_local(p["router"], p["w_gate"], p["w_up"], p["w_down"], x,
-                      top_k=cfg.moe_top_k,
-                      capacity_factor=cfg.capacity_factor)
+    x (B, S, d), this rank's batch rows.
+
+    Under a mesh whose model axis splits the experts (the ``w_*`` leaves
+    are :class:`~repro_torch.models.params.Shard` slices sharded on the
+    expert dimension), the expert-parallel path of the reference's
+    ``shard_map``: every rank routes its data shard's tokens (the capacity
+    counts those tokens), dispatches the slots of its ``E / m`` experts and
+    runs them, and the slots' contributions are summed over the model group
+    (the ``psum``, taken per slot: ``_moe_local(model_group=)``).  Otherwise the leaves are made whole and one shard runs
+    every expert; under data axes alone the positions and the capacity are
+    the whole batch's, as the reference's meshless layer sees its
+    data-sharded batch."""
+    w = p["w_gate"]
+    if (isinstance(w, Shard) and w.spec[0] == sharding.MODEL_AXIS
+            and sharding.model_shards() > 1):
+        group = sharding.get_mesh().group(sharding.MODEL_AXIS)
+        experts = [use(p[k], keep=(0,)) for k in ("w_gate", "w_up", "w_down")]
+        return _moe_local(use(p["router"]), *experts, x, top_k=cfg.moe_top_k,
+                          capacity_factor=cfg.capacity_factor,
+                          shard_idx=group.index, num_shards=group.size,
+                          model_group=group)
+    mesh = sharding.active_mesh()
+    route = (None if mesh is None or sharding.model_shards() > 1
+             else mesh.group(sharding.DATA_AXES))
+    return _moe_local(use(p["router"]), use(p["w_gate"]), use(p["w_up"]),
+                      use(p["w_down"]), x, top_k=cfg.moe_top_k,
+                      capacity_factor=cfg.capacity_factor, route_group=route)

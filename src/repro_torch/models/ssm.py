@@ -33,6 +33,7 @@ import torch.nn.functional as F
 
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import repeat_kv
+from repro_torch.distributed.sharding import P
 from repro_torch.models.params import ParamDef
 
 
@@ -49,21 +50,26 @@ def mamba_defs(cfg: ArchConfig, n_layers: int) -> dict:
     d = cfg.d_model
     d_in, h, _, g, s = _dims(cfg)
     lead = (n_layers,) if n_layers else ()
+    sl = (None,) * len(lead)
     cw = cfg.conv_width
+
+    def pd(shape, spec, init, scale=0.02):
+        return ParamDef(lead + shape, init, scale, P(*sl, *spec))
+
     return {
-        "w_z": ParamDef(lead + (d, d_in), "scaled_fan_in"),
-        "w_x": ParamDef(lead + (d, d_in), "scaled_fan_in"),
-        "w_b": ParamDef(lead + (d, g * s), "scaled_fan_in"),
-        "w_c": ParamDef(lead + (d, g * s), "scaled_fan_in"),
-        "w_dt": ParamDef(lead + (d, h), "scaled_fan_in"),
-        "dt_bias": ParamDef(lead + (h,), "zeros"),
-        "conv_x": ParamDef(lead + (cw, d_in), "normal", 0.2),
-        "conv_b": ParamDef(lead + (cw, g * s), "normal", 0.2),
-        "conv_c": ParamDef(lead + (cw, g * s), "normal", 0.2),
-        "a_log": ParamDef(lead + (h,), "zeros"),
-        "d_skip": ParamDef(lead + (h,), "ones"),
-        "gate_norm": ParamDef(lead + (d_in,), "ones"),
-        "w_out": ParamDef(lead + (d_in, d), "scaled_fan_in"),
+        "w_z": pd((d, d_in), (None, "model"), "scaled_fan_in"),
+        "w_x": pd((d, d_in), (None, "model"), "scaled_fan_in"),
+        "w_b": pd((d, g * s), (None, None), "scaled_fan_in"),
+        "w_c": pd((d, g * s), (None, None), "scaled_fan_in"),
+        "w_dt": pd((d, h), (None, "model"), "scaled_fan_in"),
+        "dt_bias": pd((h,), ("model",), "zeros"),
+        "conv_x": pd((cw, d_in), (None, "model"), "normal", 0.2),
+        "conv_b": pd((cw, g * s), (None, None), "normal", 0.2),
+        "conv_c": pd((cw, g * s), (None, None), "normal", 0.2),
+        "a_log": pd((h,), ("model",), "zeros"),
+        "d_skip": pd((h,), ("model",), "ones"),
+        "gate_norm": pd((d_in,), ("model",), "ones"),
+        "w_out": pd((d_in, d), ("model", None), "scaled_fan_in"),
     }
 
 

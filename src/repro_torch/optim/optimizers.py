@@ -15,6 +15,20 @@ its order, with the second moment factored by shape (:func:`_factorable`)
 and the update clipped by the RMS of the whole leaf's step; a leaf of rank
 3 or more is updated slice by slice along its leading axis in two passes
 (:func:`make_adafactor`), so no temporary is larger than one slice.
+
+``state_defs`` maps a ParamDef tree to the state's ParamDef tree with the
+reference's specs (moments shard like their parameter; AdamW's ZeRO-1
+moments are ``fsdpify``-ed over the data axis), for the sharded layout and
+the dry run.  Under a mesh the updates see this rank's slices: SGD and
+AdamW are elementwise, so a slice's update is the whole update's slice.
+AdamW with ``zero1`` and ``data_shards > 1`` keeps only its data rank's
+part of each moment (on the dimension ``state_defs`` gives the data axis;
+a sharded LM builds its state from ``state_defs`` itself,
+``models/lm_distributed.py``); each data rank computes its part of the
+step, the parts are
+all-gathered over the data group (in bf16 under ``bf16_step``), and every
+rank applies the whole step to its parameter slice: the unsharded update's
+bits.
 """
 from __future__ import annotations
 
@@ -23,13 +37,22 @@ from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
-from repro_torch.models.params import tree_items, tree_map
+from repro_torch.distributed import sharding as shd
+from repro_torch.models.params import (
+    ParamDef,
+    fsdpify,
+    map_defs,
+    tree_items,
+    tree_map,
+)
 
 
 @dataclasses.dataclass(frozen=True)
 class Optimizer:
-    """Named ``(init, update)`` bundle: ``init(params) -> OptState`` and
-    ``update(grads, state, params, lr) -> (new_params, new_state)``.
+    """Named ``(init, update, state_defs)`` bundle: ``init(params) ->
+    OptState``, ``update(grads, state, params, lr) -> (new_params,
+    new_state)`` and ``state_defs(param_defs) -> the state's ParamDef
+    tree``.
     ``update`` writes the new values into the parameter and moment tensors
     it is given and returns them (the reference's jitted step donates the
     state's buffers): each leaf's new value is computed out of place, as
@@ -38,8 +61,9 @@ class Optimizer:
     memory (an LM's old and new states are never held together)."""
 
     name: str
-    init: Callable[[Any], Any]
+    init: Callable[..., Any]
     update: Callable[..., Any]
+    state_defs: Callable[[Any], Any]
 
 
 class OptState(NamedTuple):
@@ -59,6 +83,14 @@ class AdamMoments(NamedTuple):
 
 def _device(params) -> torch.device:
     return tree_items(params)[0][1].device
+
+
+def _zeros_def(d: ParamDef) -> ParamDef:
+    return dataclasses.replace(d, init="zeros")
+
+
+def _count_def() -> ParamDef:
+    return ParamDef((), "zeros")
 
 
 def make_sgd(momentum: float = 0.0) -> Optimizer:
@@ -81,18 +113,33 @@ def make_sgd(momentum: float = 0.0) -> Optimizer:
                          params, grads)
         return new_p, OptState(None, state.count + 1)
 
-    return Optimizer("sgd", init, update)
+    def state_defs(defs):
+        return OptState(map_defs(_zeros_def, defs) if use_m else None,
+                        _count_def())
+
+    return Optimizer("sgd", init, update, state_defs)
 
 
 def make_adamw(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
-               weight_decay: float = 0.0) -> Optimizer:
-    """AdamW with fp32 moments (ZeRO-1 and the bf16 step wait for the mesh
-    slice)."""
+               weight_decay: float = 0.0, zero1: bool = False,
+               data_shards: int = 1, bf16_step: bool = False) -> Optimizer:
+    """AdamW with fp32 moments; ``zero1`` with ``data_shards > 1`` keeps
+    each data rank's part of the moments only (the module docstring), and
+    ``bf16_step`` rounds the step to bf16 before ``p - lr * step``, as the
+    reference does, on every path."""
+    sliced = zero1 and data_shards > 1
+
     def init(params):
         def zeros(p):
-            return AdamMoments(torch.zeros(p.shape, dtype=torch.float32,
+            shape = list(p.shape)
+            if sliced:                # the dimension state_defs gives "data"
+                d = fsdpify(ParamDef(tuple(p.shape)), data_shards)
+                for i, ax in enumerate(d.spec):
+                    if ax is not None:
+                        shape[i] //= data_shards
+            return AdamMoments(torch.zeros(shape, dtype=torch.float32,
                                            device=p.device),
-                               torch.zeros(p.shape, dtype=torch.float32,
+                               torch.zeros(shape, dtype=torch.float32,
                                            device=p.device))
         return OptState(tree_map(zeros, params),
                         torch.zeros((), dtype=torch.int32,
@@ -104,21 +151,56 @@ def make_adamw(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
         bc1 = 1 - b1 ** cf
         bc2 = 1 - b2 ** cf
 
-        def upd(p, g, mom: AdamMoments):
+        def step_of(p, g, mom: AdamMoments):
             g = g.float()
             m = b1 * mom.mu + (1 - b1) * g
             v = b2 * mom.nu + (1 - b2) * g * g
             step = (m / bc1) / (torch.sqrt(v / bc2) + eps)
             if weight_decay:
                 step = step + weight_decay * p.float()
-            p.copy_((p - lr * step).to(p.dtype))
-            return p, AdamMoments(mom.mu.copy_(m), mom.nu.copy_(v))
+            mom.mu.copy_(m)
+            mom.nu.copy_(v)
+            return step.to(torch.bfloat16) if bf16_step else step
+
+        def upd(p, g, mom: AdamMoments):
+            dim = next((i for i, (a, b) in enumerate(zip(p.shape,
+                                                         mom.mu.shape))
+                        if a != b), None)
+            if dim is None:
+                step = step_of(p, g, mom)
+            else:                     # ZeRO-1: this data rank's part
+                group = _zero1_group(p.shape[dim] // mom.mu.shape[dim])
+                n = mom.mu.shape[dim]
+                part = step_of(p.narrow(dim, group.index * n, n),
+                               g.narrow(dim, group.index * n, n), mom)
+                step = shd.all_gather_cat(part.contiguous(), dim, group)
+            _apply(p, step, 1.0, lr, bf16_step, scaled=False)
+            return p, mom
 
         out = tree_map(upd, params, grads, state.moments)
         return (tree_map(lambda t: t[0], out),
                 OptState(tree_map(lambda t: t[1], out), c))
 
-    return Optimizer("adamw", init, update)
+    def state_defs(defs):
+        m = map_defs(lambda d: AdamMoments(_zeros_def(d), _zeros_def(d)),
+                     defs)
+        if sliced:
+            m = fsdpify(m, data_shards)
+        return OptState(m, _count_def())
+
+    return Optimizer("adamw", init, update, state_defs)
+
+
+def _zero1_group(n: int):
+    """The data group a ZeRO-1 moment is split over (``n`` ranks) on the
+    active mesh: the data axis, or every data axis together."""
+    mesh = shd.get_mesh()
+    for axes in ("data", shd.DATA_AXES):
+        group = mesh.group(axes) if mesh is not None else None
+        if group is not None and group.size == n:
+            return group
+    raise ValueError(f"ZeRO-1 moments split {n} ways need a mesh whose data "
+                     f"axes have {n} ranks; the active mesh is {mesh}")
 
 
 class FactoredMoment(NamedTuple):
@@ -165,12 +247,14 @@ def _write(dst: FactoredMoment, src: FactoredMoment) -> None:
             old.copy_(new)
 
 
-def _apply(p, step, scale, lr: float, bf16_step: bool) -> None:
-    """``p <- p - lr * (step / scale)`` in place; with ``bf16_step`` the
-    step, and ``lr`` with it, is rounded to bf16 before the product (as the
-    reference's bf16 step meets its weakly typed ``lr``), the subtraction
-    in fp32."""
-    step = step / scale
+def _apply(p, step, scale, lr: float, bf16_step: bool,
+           scaled: bool = True) -> None:
+    """``p <- p - lr * (step / scale)`` in place (``step`` as it is when
+    not ``scaled``); with ``bf16_step`` the step, and ``lr`` with it, is
+    rounded to bf16 before the product (as the reference's bf16 step meets
+    its weakly typed ``lr``), the subtraction in fp32."""
+    if scaled:
+        step = step / scale
     if bf16_step:
         step = step.to(torch.bfloat16)
         lr = torch.tensor(lr, dtype=torch.bfloat16, device=step.device)
@@ -248,7 +332,21 @@ def make_adafactor(decay: float = 0.99, eps: float = 1e-30,
         moments = tree_map(upd, params, grads, state.moments)
         return params, OptState(moments, state.count + 1)
 
-    return Optimizer("adafactor", init, update)
+    def state_defs(defs):
+        def fm(d: ParamDef):
+            if not _factorable(d.shape):
+                return FactoredMoment(None, None, _zeros_def(d))
+            spec = list(d.spec) + [None] * (len(d.shape) - len(d.spec))
+            return FactoredMoment(
+                dataclasses.replace(d, shape=d.shape[:-1],
+                                    spec=shd.P(*spec[:-1]), init="zeros"),
+                dataclasses.replace(d, shape=d.shape[:-2] + d.shape[-1:],
+                                    spec=shd.P(*(spec[:-2] + spec[-1:])),
+                                    init="zeros"),
+                None)
+        return OptState(map_defs(fm, defs), _count_def())
+
+    return Optimizer("adafactor", init, update, state_defs)
 
 
 def get_optimizer(name: str, **kw) -> Optimizer:

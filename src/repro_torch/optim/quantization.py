@@ -28,6 +28,7 @@ from typing import NamedTuple, Union
 import torch
 
 from repro_torch.core import tiling
+from repro_torch.distributed.sharding import ShardedRows
 from repro_torch.kernels.embedding_update import (
     gather_dequant_rows, gather_dequant_rows_plain)
 
@@ -130,7 +131,11 @@ def gather_rows(table: Table, ids: torch.Tensor, *,
     reach a table add in a fixed order), dequantized rows for a quantized
     one.  ``use_kernel=True`` sends a
     quantized gather through the gather-dequant kernel (its plain version on
-    CPU tensors); ``ids`` may have any shape."""
+    CPU tensors); ``ids`` may have any shape.  A row-sharded
+    :class:`~repro_torch.distributed.sharding.ShardedRows` table (an LM
+    vocab table under a model axis) takes its owner-masked lookup."""
+    if isinstance(table, ShardedRows):
+        return table.lookup(ids)
     if not isinstance(table, QuantizedTable):
         return tiling.gather_rows(table, ids)
     if use_kernel:

@@ -25,7 +25,8 @@ Layout::
   explicit ``step`` is strict.
 - **Retention**: keep the last ``keep`` *valid* checkpoints, so a run whose
   newest saves are corrupt never loses its last good state.
-- **Sharded runs** (``plan=``, a ``core/mf_distributed.py::MFShardingPlan``):
+- **Sharded runs** (``plan=``, a ``core/mf_distributed.py::MFShardingPlan``
+  or a ``models/lm_distributed.py::LMShardingPlan``):
   a save gathers the whole state and rank 0 alone writes it, in the layout
   above, while the others wait; a restore reads the whole files and keeps
   this rank's part.  The files do not depend on the world size, so a
@@ -324,7 +325,9 @@ def restore(ckpt_dir: str, target: Any, step: Optional[int] = None, *,
 
     tree = map_leaves(target, load)
     if plan is not None:
-        tree = plan.place_state(tree, device=target.params.user_table.device)
+        device = next(leaf.device for _, leaf in named_leaves(target)
+                      if isinstance(leaf, torch.Tensor))
+        tree = plan.place_state(tree, device=device)
     return tree, step, manifest["extra"]
 
 

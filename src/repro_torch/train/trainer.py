@@ -16,8 +16,11 @@ CUDA graph is a later optimization.
 
 The LM step (:func:`make_lm_train_step_raw`) takes the gradients of every
 parameter with ``torch.autograd.grad`` (``grad_accum`` micro-batches summed
-in order) and applies the optimizer to the whole tree.  On the card it is
-deterministic: the table gathers sum duplicate rows in a fixed order
+in order) and applies the optimizer to the whole tree.  Under a mesh
+(``TrainerConfig.mesh``, or the active mesh) every rank runs the same loop
+on its slices of the parameters and state and its rows of each batch
+(``models/lm_distributed.py``); checkpoints hold the whole state.  On the
+card it is deterministic: the table gathers sum duplicate rows in a fixed order
 (``core/tiling.py::gather_rows``), the CCL kernels use no atomics and
 matmuls run in full fp32 (PyTorch's default, TF32 off), so a run healed
 from a checkpoint ends on the bits of the uninterrupted run.
@@ -35,6 +38,7 @@ from repro_torch.core.engine import StepEngine, resolve_engine
 from repro_torch.data import pipeline
 from repro_torch.distributed import sharding as shd
 from repro_torch.models import lm
+from repro_torch.models import lm_distributed as lmd
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.params import tree_from_items, tree_items, tree_map
 from repro_torch.optim.optimizers import Optimizer, get_optimizer
@@ -58,11 +62,15 @@ class EpochExecutor:
     any carry the body threads (an ``MFState``, or the streaming service's
     ``(state, data)`` pair).  ``trace_counter`` counts the distinct window
     lengths dispatched — the reference compiles one program per length and
-    counts its traces — and raises past ``trace_budget``."""
+    counts its traces — and raises past ``trace_budget``.  ``reduce``
+    (optional) maps the window's stacked losses before they are returned:
+    a sharded LM run sums its ranks' parts there, once a window."""
 
     def __init__(self, body: Callable, steps_per_dispatch: int, *,
-                 trace_budget: Optional[int] = None):
+                 trace_budget: Optional[int] = None,
+                 reduce: Optional[Callable] = None):
         self.body = body
+        self.reduce = reduce
         self.steps_per_dispatch = max(int(steps_per_dispatch), 1)
         self.trace_counter = ShapeCounter("epoch_executor.window",
                                           trace_budget)
@@ -75,7 +83,8 @@ class EpochExecutor:
         for step in range(start, start + length):
             state, loss = self.body(state, step)
             losses.append(loss)
-        return state, torch.stack(losses)
+        window = torch.stack(losses)
+        return state, window if self.reduce is None else self.reduce(window)
 
 
 def _window_length(step: int, stop: int, k: int, ckpt_every: int,
@@ -205,8 +214,9 @@ INIT_STREAM = 1 << 40
 @dataclasses.dataclass
 class TrainerConfig:
     """LM trainer knobs (steps, lr, batch, checkpointing, failure
-    injection): the reference's fields, less the mesh (LM sharding waits
-    for a later slice)."""
+    injection, the mesh): the reference's fields.  ``mesh`` (a
+    ``distributed.sharding.Mesh``) shards the run; None takes the active
+    mesh, if any."""
 
     steps: int = 100
     lr: float = 1e-3
@@ -222,6 +232,7 @@ class TrainerConfig:
     grad_accum: int = 1
     fixed_batch: bool = False               # overfit one batch (tests/demos)
     steps_per_dispatch: int = 1             # steps per window
+    mesh: Optional[Any] = None              # None: the active mesh
 
 
 class LMTrainState(NamedTuple):
@@ -236,22 +247,46 @@ class LMTrainState(NamedTuple):
 
 def make_lm_train_step_raw(cfg: ArchConfig, opts: lm.TrainOptions,
                            optimizer: Optimizer, lr: float,
-                           grad_accum: int = 1) -> Callable:
+                           grad_accum: int = 1, plan=None) -> Callable:
     """``step_fn(state, batch, rng) -> (state, loss)``: the LM step.  ``rng``
     is the step's integer key; ``grad_accum > 1`` splits every tensor of the
     batch (the tokens and any modality extras) along its first dimension
     into that many micro-batches (micro-batch ``i`` keyed ``fold_in(rng,
     i)``), sums
     their gradients in order, divides by ``grad_accum`` and applies one
-    optimizer update.  The loss is a 0-d tensor on the device."""
+    optimizer update.  The loss is a 0-d tensor on the device.
+
+    With ``plan`` (an ``lm_distributed.LMShardingPlan``) ``state`` holds
+    this rank's slices and ``batch`` is the whole batch: each micro-batch's
+    rows are split over the data group (``plan.batch_rows``), each rank's
+    loss is weighted by its share of the micro-batch's tokens, the
+    gradients are summed over the data group (``plan.sync_grads``) and the
+    returned loss is this rank's part of the whole batch's
+    (``plan.reduce_losses`` sums the parts); the step runs under the
+    plan's mesh."""
+    split = plan is not None and plan.data.size > 1
 
     def one_micro(params, tile, batch, rng):
+        weight = None
+        if split:
+            rows = batch["tokens"].shape[0]
+            lo, hi = plan.batch_rows(rows)
+            if hi == lo:
+                raise ValueError(f"a micro-batch of {rows} rows leaves a "
+                                 f"data rank of {plan.data.size} none")
+            batch = {k: v[lo:hi] for k, v in batch.items()}
+            weight = (hi - lo) / rows
         items = [(path, p.detach().requires_grad_())
                  for path, p in tree_items(params)]
         leaves = [p for _, p in items]
+        view = tree_from_items(items)
+        if plan is not None:
+            view = plan.view(view)
         with torch.enable_grad():
-            loss, new_tile = lm.forward_train(tree_from_items(items), batch,
-                                              cfg, opts, rng, tile)
+            loss, new_tile = lm.forward_train(view, batch, cfg, opts, rng,
+                                              tile)
+            if weight is not None:
+                loss = loss * weight
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(leaves, grads)]
@@ -260,6 +295,9 @@ def make_lm_train_step_raw(cfg: ArchConfig, opts: lm.TrainOptions,
                                  zip(items, grads)]), new_tile)
 
     def step_fn(state: LMTrainState, batch: dict, rng: int):
+        if plan is not None and shd.get_mesh() is not plan.mesh:
+            with shd.use_mesh(plan.mesh):
+                return step_fn(state, batch, rng)
         if grad_accum == 1:
             loss, grads, tile = one_micro(state.params, state.tile, batch, rng)
         else:
@@ -275,8 +313,12 @@ def make_lm_train_step_raw(cfg: ArchConfig, opts: lm.TrainOptions,
                 losses.append(loss_i)
             grads = tree_map(lambda g: g / grad_accum, g_sum)
             loss = torch.stack(losses).mean()
-        params, opt_state = optimizer.update(grads, state.opt_state,
-                                             state.params, lr)
+        if plan is None:
+            params, opt_state = optimizer.update(grads, state.opt_state,
+                                                 state.params, lr)
+        else:
+            params, opt_state = plan.update(plan.sync_grads(grads),
+                                            state.opt_state, state.params, lr)
         return LMTrainState(params, opt_state, tile, state.step + 1), loss
 
     return step_fn
@@ -284,31 +326,36 @@ def make_lm_train_step_raw(cfg: ArchConfig, opts: lm.TrainOptions,
 
 def init_lm_state(seed: int, cfg: ArchConfig, opts: lm.TrainOptions,
                   optimizer: Optimizer, dtype=torch.float32,
-                  device=None) -> LMTrainState:
+                  device=None, plan=None) -> LMTrainState:
     """Fresh :class:`LMTrainState` on ``device`` (the card by default):
     parameters from ``fold_in(fold_in(seed, INIT_STREAM), 0)``, and with the
     HEAT head and ``cfg.heat.tile_size > 0`` an id-only vocab tile from
-    ``fold_in(..., 1)``."""
+    ``fold_in(..., 1)``.  With ``plan`` the parameters and the optimizer
+    state are this rank's slices of the unsharded state's (the tile is the
+    same on every rank)."""
     dev = mf.resolve_device(device)
     key = mf.fold_in(seed, INIT_STREAM)
-    params = lm.init_params(mf.fold_in(key, 0), cfg, dtype, dev)
+    params = lm.init_params(mf.fold_in(key, 0), cfg, dtype, dev,
+                            mesh=None if plan is None else plan.mesh)
     tile = None
     if opts.loss == "heat" and cfg.heat.enabled and cfg.heat.tile_size:
         tile = samplers.id_tile_init(mf.generator(mf.fold_in(key, 1), dev),
                                      cfg.vocab, cfg.heat.tile_size)
-    return LMTrainState(params, optimizer.init(params), tile, 0)
+    opt_state = (optimizer.init(params) if plan is None
+                 else plan.init_opt_state(dev))
+    return LMTrainState(params, opt_state, tile, 0)
 
 
 def lm_window_body(cfg: ArchConfig, opts: lm.TrainOptions, tcfg: TrainerConfig,
                    optimizer: Optimizer, extras_spec: Optional[dict] = None,
-                   device=None) -> Callable:
+                   device=None, plan=None) -> Callable:
     """:func:`train_lm`'s window body, ``body(state, step) -> (state,
     loss)``: the step on ``pipeline.lm_batch`` drawn on ``device`` from
     (seed, step) (``tcfg.fixed_batch``: always step 0's, with
     ``extras_spec``'s modality inputs) with the key ``fold_in(seed,
-    step)``."""
+    step)``; with ``plan``, the sharded step on the whole batch."""
     step_fn = make_lm_train_step_raw(cfg, opts, optimizer, tcfg.lr,
-                                     tcfg.grad_accum)
+                                     tcfg.grad_accum, plan)
 
     def body(state: LMTrainState, step: int):
         batch = pipeline.lm_batch(0 if tcfg.fixed_batch else step,
@@ -335,16 +382,31 @@ def train_lm(cfg: ArchConfig, opts: lm.TrainOptions, tcfg: TrainerConfig,
     checkpoint, saves every ``tcfg.ckpt_every`` steps, and on a
     :class:`SimulatedFailure` (armed by ``tcfg.fail_at_step``, fired once)
     restores the latest valid checkpoint — or starts over when there is
-    none — at most ``tcfg.max_restarts`` times."""
+    none — at most ``tcfg.max_restarts`` times.
+
+    ``tcfg.mesh`` (or, without one, the active mesh) runs the same loop
+    sharded on every rank of the mesh, each on its ``device``, as the
+    reference's mesh does (``models/lm_distributed.py``): it returns this
+    rank's state (``plan.gather_state`` makes it whole) and the whole
+    batch's losses, the same on every rank; checkpoints hold the whole
+    state and restore onto any mesh."""
+    mesh = tcfg.mesh if tcfg.mesh is not None else shd.get_mesh()
+    if mesh is not None and shd.get_mesh() is not mesh:
+        with shd.use_mesh(mesh):
+            return train_lm(cfg, opts, tcfg, extras_spec, device=device,
+                            log=log)
     dev = mf.resolve_device(device)
     optimizer = get_optimizer(tcfg.optimizer)
-    state = init_lm_state(tcfg.seed, cfg, opts, optimizer, device=dev)
+    plan = None if mesh is None else lmd.LMShardingPlan(cfg, mesh, optimizer)
+    state = init_lm_state(tcfg.seed, cfg, opts, optimizer, device=dev,
+                          plan=plan)
     executor = EpochExecutor(lm_window_body(cfg, opts, tcfg, optimizer,
-                                            extras_spec, dev),
-                             tcfg.steps_per_dispatch)
+                                            extras_spec, dev, plan),
+                             tcfg.steps_per_dispatch,
+                             reduce=None if plan is None else plan.reduce_losses)
     start = 0
     if tcfg.ckpt_dir and ckpt.latest_step(tcfg.ckpt_dir) is not None:
-        state, start, _ = ckpt.restore(tcfg.ckpt_dir, state)
+        state, start, _ = ckpt.restore(tcfg.ckpt_dir, state, plan=plan)
         log(f"[trainer] resumed from step {start}")
 
     losses: list = []
@@ -365,16 +427,16 @@ def train_lm(cfg: ArchConfig, opts: lm.TrainOptions, tcfg: TrainerConfig,
                         log(f"[trainer] step {i} loss {window[i - step]:.4f}")
             step += length
             if tcfg.ckpt_dir and step % tcfg.ckpt_every == 0:
-                ckpt.save(tcfg.ckpt_dir, step, state)
+                ckpt.save(tcfg.ckpt_dir, step, state, plan=plan)
         except SimulatedFailure as e:
             restarts += 1
             if restarts > tcfg.max_restarts or not tcfg.ckpt_dir:
                 raise
             log(f"[trainer] {e} -> restoring latest checkpoint")
             if ckpt.latest_step(tcfg.ckpt_dir) is not None:
-                state, step, _ = ckpt.restore(tcfg.ckpt_dir, state)
+                state, step, _ = ckpt.restore(tcfg.ckpt_dir, state, plan=plan)
             else:
                 state = init_lm_state(tcfg.seed, cfg, opts, optimizer,
-                                      device=dev)
+                                      device=dev, plan=plan)
                 step = 0
     return state, losses

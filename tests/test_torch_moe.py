@@ -168,9 +168,12 @@ def test_moe_apply_is_the_one_shard_path_and_refuses_a_model_axis(monkeypatch):
     tp = {k: torch.as_tensor(v) for k, v in p.items()}
     got = moe.moe_apply(tp, torch.as_tensor(x), cfg)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+    # A model axis no longer refuses: whole (unsharded) leaves under it
+    # take the one-shard path, the same bits; the expert-parallel path,
+    # for leaves sharded over the model axis, is held in
+    # tests/test_torch_lm_sharding.py.
     monkeypatch.setattr(moe.sharding, "model_shards", lambda: 2)
-    with pytest.raises(NotImplementedError, match="A.5"):
-        moe.moe_apply(tp, torch.as_tensor(x), cfg)
+    assert torch.equal(moe.moe_apply(tp, torch.as_tensor(x), cfg), got)
 
 
 # --------------------------------------------------------------------------
