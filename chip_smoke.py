@@ -2759,6 +2759,48 @@ def step_clock():
         trainer.EpochExecutor.run, shd.all_gather_parts = run, gather
 
 
+@contextlib.contextmanager
+def first_step_counts():
+    """Counts the first step a run's ``EpochExecutor`` takes: its FLOPs
+    (``dryrun.FlopCounter``, which leaves the step's bits as they are), its
+    exchanges' bytes by kind (``sharding.ExchangeCounter``) and the bytes of
+    the parameters and the optimizer state it starts from
+    (``dryrun.tree_bytes``), the numbers phase 23b holds the dry run to.
+    Yields the dict it fills."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.dryrun import FlopCounter, tree_bytes
+    from repro_torch.train import trainer
+    out: dict = {}
+    run = trainer.EpochExecutor.run
+
+    def counted_run(self, state, start, length):
+        if out:
+            return run(self, state, start, length)
+        body = self.body
+
+        def first(st, step):
+            self.body = body
+            out.update(params=tree_bytes(st.params),
+                       opt_state=tree_bytes(st.opt_state), step=step)
+            with shd.ExchangeCounter() as ex, FlopCounter() as flops:
+                got = body(st, step)
+            out.update(flops=flops.get_total_flops(),
+                       collective_bytes=dict(ex.bytes))
+            return got
+
+        self.body = first
+        try:
+            return run(self, state, start, length)
+        finally:
+            self.body = body
+
+    trainer.EpochExecutor.run = counted_run
+    try:
+        yield out
+    finally:
+        trainer.EpochExecutor.run = run
+
+
 def conditioned_run(cfg, opts, tcfg, dev, plan=None):
     """``train_lm``'s init (this rank's slices under ``plan``) with the
     attention conditioned (:func:`condition_attention_`), trained by
@@ -2781,12 +2823,14 @@ def conditioned_run(cfg, opts, tcfg, dev, plan=None):
     return state, losses
 
 
-def lm_run(cfg, opts, tcfg, dev, mesh=None, samples=None, condition: bool = False):
+def lm_run(cfg, opts, tcfg, dev, mesh=None, samples=None, condition: bool = False,
+           count: bool = False):
     """One ``train_lm`` run on this rank, sharded under ``mesh``
     (``condition``: through :func:`conditioned_run`): its losses, logs,
     launches of #3 and #4, ms a step and exchange ms a step over its windows
-    (:func:`step_clock`), peak memory and sampled state difference; returns
-    ``(state, plan, the numbers)``."""
+    (:func:`step_clock`), peak memory and sampled state difference, and with
+    ``count`` its first step's :func:`first_step_counts`; returns ``(state,
+    plan, the numbers)``."""
     import torch
     from repro_torch.kernels import ccl_similarity
     from repro_torch.models import lm_distributed as lmd
@@ -2801,13 +2845,14 @@ def lm_run(cfg, opts, tcfg, dev, mesh=None, samples=None, condition: bool = Fals
     logs = []
     plan = (None if mesh is None
             else lmd.LMShardingPlan(cfg, mesh, get_optimizer(tcfg.optimizer)))
-    with step_clock() as clock:
+    with step_clock() as clock, (first_step_counts() if count
+                                 else contextlib.nullcontext({})) as counts:
         if condition:
             state, losses = conditioned_run(cfg, opts, tcfg, dev, plan)
         else:
             state, losses = trainer.train_lm(cfg, opts, dataclasses.replace(
                 tcfg, mesh=mesh), device=dev, log=logs.append)
-    out = {"losses": losses, "logs": logs,
+    out = {"losses": losses, "logs": logs, "counts": dict(counts),
            "launches": {c.name: c.count() for c in counters},
            "ms": 1e3 * clock["window_s"] / clock["steps"],
            "exch_ms": 1e3 * clock["exchange_s"] / clock["steps"],
@@ -2830,7 +2875,7 @@ def lm_shard_rank_moe(runs: dict, opts) -> dict:
     out = {"device": str(dev), "rank": dist.get_rank()}
     for label, (cfg, tcfg, samples) in runs.items():
         state, _, out[label] = lm_run(cfg, opts, tcfg, dev, mesh, samples,
-                                      condition=True)
+                                      condition=True, count=label == "ek")
         p = state.params
         out["local"] = {k: tuple(v.shape) for k, v in (
             ("embed", p["embed"]), ("out_embed", p["out_embed"]),
@@ -2855,7 +2900,7 @@ def lm_shard_rank_mesh22(cfg, opts, sgd, crash, adamw, samples) -> dict:
     dev = rank_device("cuda")
     mesh = make_host_mesh(2, 2)
     out = {"device": str(dev), "rank": dist.get_rank(), "coords": dict(mesh.coords)}
-    state, plan, out["sgd"] = lm_run(cfg, opts, sgd, dev, mesh, samples)
+    state, plan, out["sgd"] = lm_run(cfg, opts, sgd, dev, mesh, samples, count=True)
     out["rows"] = plan.batch_rows(sgd.batch_size)
     clean = {n: x.cpu().clone() for n, x in ckpt.named_leaves(state)
              if isinstance(x, torch.Tensor)}
@@ -2869,7 +2914,7 @@ def lm_shard_rank_mesh22(cfg, opts, sgd, crash, adamw, samples) -> dict:
     return out
 
 
-def lm_sharding_phase(dev, card: str, counters) -> float:
+def lm_sharding_phase(dev, card: str, counters):
     """Phase 22: LM training under a mesh (``TrainerConfig.mesh``), through
     kernels #3 and #4 on every rank.  22a: smollm-360m (AdamW) on a
     one-rank NCCL mesh against the unsharded run, bit for bit; 22b: the
@@ -2882,7 +2927,9 @@ def lm_sharding_phase(dev, card: str, counters) -> float:
     beside the unsharded AdamW run; 22d: the CLI with --mesh-data 2.  Each
     run prints ms a step and the exchanges' share over its windows, every
     rank's peak memory and its launches of #3 and #4 a step.  Returns the
-    phase's seconds."""
+    phase's seconds and, for phase 23b, the first step's counts of every
+    rank of 22b's dropless run and 22c's SGD run with what the dry run
+    needs to build the same cells."""
     import shutil
 
     import torch
@@ -2896,6 +2943,7 @@ def lm_sharding_phase(dev, card: str, counters) -> float:
     from repro_torch.train import trainer
     t_phase = time.perf_counter()
     steps = SHARD_LM_STEPS
+    counted: dict = {}
 
     def launches_ok(numbers, n):
         want = {"ccl_stats_shared": n, "ccl_bwd_shared": n}
@@ -2995,6 +3043,9 @@ def lm_sharding_phase(dev, card: str, counters) -> float:
             {"ek": (dropless, msgd, m_samples), "125": (mcfg, msgd, None)}, mopts),
             backend="gloo", device="cuda", timeout=600)
         t_ranks = time.perf_counter() - t0
+        counted["22b"] = dict(cfg=dropless, opts=mopts, rows=(MOE_B, MOE_S),
+                              mesh={"data": 1, "model": 2}, optimizer="sgd",
+                              ranks=[r["ek"]["counts"] for r in ranks])
         r0 = ranks[0]
         loss_err = max(abs(a - b) for a, b in zip(r0["ek"]["losses"], mref_run["losses"]))
         state_err = max(r["ek"]["diff"] for r in ranks)
@@ -3033,6 +3084,9 @@ def lm_sharding_phase(dev, card: str, counters) -> float:
             crash, dataclasses.replace(adamw, steps=SHARD_LM_ADAMW_STEPS), s_samples),
             backend="gloo", device="cuda", timeout=900)
         t_ranks = time.perf_counter() - t0
+        counted["22c"] = dict(cfg=cfg, opts=opts, rows=(LM_B, LM_S),
+                              mesh={"data": 2, "model": 2}, optimizer="sgd",
+                              ranks=[r["sgd"]["counts"] for r in ranks])
         r0 = ranks[0]
         loss_err = max(abs(a - b) for a, b in zip(r0["sgd"]["losses"], sref_run["losses"]))
         state_err = max(r["sgd"]["diff"] for r in ranks)
@@ -3107,6 +3161,342 @@ def lm_sharding_phase(dev, card: str, counters) -> float:
           f"in {time.perf_counter() - t0:.1f} s: {' / '.join(lines)} | {card}", flush=True)
     secs = time.perf_counter() - t_phase
     print(f"[22 lm shard] phase 22 took {secs:.1f} s | {card}", flush=True)
+    return secs, counted
+
+
+#: phase 23a: the dry run's whole matrix takes about 8 minutes in one process
+#: on a CPU host at full depth (every cell of SHAPES and MF_SHAPES on both production
+#: meshes), so the smoke run takes the reference's L-override, DRY_LAYERS
+#: layers a stack.  23c: sharded serving of smollm-360m on four gloo ranks
+#: (data=2 x model=2) at SHARD_SERVE_B prompts of SHARD_SERVE_S tokens and
+#: SHARD_SERVE_STEPS decode steps, held to the unsharded run within
+#: SHARD_SERVE_ATOL.
+DRY_LAYERS = 2
+SHARD_SERVE_B, SHARD_SERVE_S, SHARD_SERVE_STEPS = 8, 128, 8
+SHARD_SERVE_ATOL = 1e-5
+
+
+def spec_leaves(tree) -> list:
+    """The PartitionSpecs of a spec tree of NamedTuples and tuples."""
+    from repro_torch.distributed.sharding import PartitionSpec
+    if tree is None:
+        return []
+    if isinstance(tree, PartitionSpec):
+        return [tree]
+    return [x for v in tree for x in spec_leaves(v)]
+
+
+def dry_rank_cell(world: int, rank: int, mesh_shape: dict, arch: str, rows: tuple,
+                  overrides: dict, opts, optimizer: str) -> dict:
+    """The dry run's record of one rank of a ``world``-rank fake process
+    group on a ``mesh_shape`` mesh: ``arch`` with ``overrides`` trained on
+    ``rows`` = (batch, seq) tokens with ``optimizer`` (a worker process's
+    body; it touches no card)."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import dryrun
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.optim.optimizers import get_optimizer
+    with dryrun.fake_process_group(world, rank):
+        return dryrun.lower_cell(arch, ShapeConfig("phase22", rows[1], rows[0], "train"),
+                                 shd.Mesh(mesh_shape), opts=opts, overrides=overrides,
+                                 optimizer=get_optimizer(optimizer))
+
+
+def lm_serve_shard_rank(cfg, opts, tokens) -> dict:
+    """One of phase 23c's four gloo ranks on card 0 (data=2 x model=2):
+    this rank's slices of the unsharded init with the attention conditioned,
+    a sharded prefill of the prompts, then SHARD_SERVE_STEPS sharded decode
+    steps of the next tokens; the logits (host arrays, whole on every rank),
+    the prefill of one more token for the decode-after-prefill check, the
+    ms, the prefill's exchange bytes and a decode step's by group axes."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.dryrun import tree_bytes
+    from repro_torch.launch.mesh import make_host_mesh, rank_device
+    from repro_torch.models import lm
+    from repro_torch.models import lm_distributed as lmd
+    dev = rank_device("cuda")
+    mesh = make_host_mesh(2, 2)
+    local = lm.init_params(0, cfg, device=dev, mesh=mesh)
+    condition_attention_(local, cfg)
+    view = lmd.LMShardingPlan(cfg, mesh).view(local)
+    toks = torch.as_tensor(tokens, device=dev)
+    s, n = SHARD_SERVE_S, SHARD_SERVE_STEPS
+    out = {"rank": dist.get_rank(), "device": str(dev), "decode": []}
+    with shd.use_mesh(mesh), shd.ExchangeCounter() as ex:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = lm.prefill(view, {"tokens": toks[:, :s]}, cfg, opts, device=dev)
+        torch.cuda.synchronize()
+        out["prefill_ms"] = 1e3 * (time.perf_counter() - t0)
+        out["prefill"] = logits.cpu().numpy()
+        out["placed"] = sum(any(a is not None for a in spec)
+                            for spec in spec_leaves(lmd.cache_specs(cache)))
+        cache = lmd.place_cache(lm.pad_cache(lmd.gather_cache(cache, mesh), cfg, s + n),
+                                mesh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with shd.ExchangeCounter() as ex_dec:
+            for p in range(s, s + n):
+                step, cache = lm.decode_step(view, cache, toks[:, p:p + 1].contiguous(),
+                                             p, cfg, opts, device=dev)
+                out["decode"].append(step[:, 0].cpu().numpy())
+        torch.cuda.synchronize()
+        out["decode_ms"] = 1e3 * (time.perf_counter() - t0) / n
+        out["exchange_bytes"] = dict(ex.bytes)
+        out["decode_exchange_by_axes"] = {"x".join(axes): v // n
+                                          for axes, v in ex_dec.by_axes.items()}
+        want, _ = lm.prefill(view, {"tokens": toks[:, :s + 1]}, cfg, opts, device=dev)
+        out["prefill_next"] = want.cpu().numpy()
+    out["local_cache_gb"] = tree_bytes(cache) / 1e9
+    return out
+
+
+def dryrun_phase(dev, card: str, counted: dict) -> float:
+    """Phase 23: the dry run against the card.  (a) ``python -m
+    repro_torch.launch.dryrun`` over the whole matrix at DRY_LAYERS layers
+    in a subprocess on the host's CPU: the records' counts, raising on any
+    failure; (b) the dry run at phase 22's cells (22b: moonshot cut to 4
+    layers, model=2; 22c: smollm-360m, data=2 x model=2), one record for
+    every rank, each built in its own worker process: every rank's real
+    parameter and optimizer-state bytes, its first step's exchange bytes by
+    kind and its FLOPs equal the record's; (c) sharded serving of
+    smollm-360m on four gloo ranks against the unsharded run.  Returns the
+    phase's seconds."""
+    import concurrent.futures
+    import multiprocessing
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.models import lm
+    t_phase = time.perf_counter()
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
+
+    # ---- 23a: the whole matrix -----------------------------------------------------
+    with tempfile.TemporaryDirectory() as work:
+        out_json = os.path.join(work, "dryrun.json")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--layers",
+             str(DRY_LAYERS), "--out", out_json],
+            capture_output=True, text=True, timeout=900,
+            env=dict(os.environ, PYTHONPATH=src, CUDA_VISIBLE_DEVICES=""))
+        t_dry = time.perf_counter() - t0
+        assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+        with open(out_json) as f:
+            records = json.load(f)
+    by_status = {k: sum(r["status"] == k for r in records) for k in ("ok", "skip", "fail")}
+    mf_ok = sum(r["status"] == "ok" and r["arch"] == "heat-mf-amazon" for r in records)
+    bounded = sorted({b for r in records for b in r.get("bounded", [])})
+    assert by_status == {"ok": 68, "skip": 8, "fail": 0}, by_status
+    assert mf_ok == 4 and all(r["mode"] == "meta" for r in records)
+    assert "0 failures" in proc.stdout
+    print(f"[23a dryrun] python -m repro_torch.launch.dryrun --layers {DRY_LAYERS} (the "
+          f"reference's L-override: the full-depth matrix takes about 8 minutes in one "
+          f"process) on the host's CPU, fake process groups of 256 and 512 ranks: "
+          f"{by_status['ok']} ok ({mf_ok} heat-mf-amazon), {by_status['skip']} skipped "
+          f"(long_500k on full attention), {by_status['fail']} failed, every record "
+          f"mode meta, upper-bounded sizes named {bounded}; {t_dry:.1f} s | {card}",
+          flush=True)
+
+    # ---- 23b: the dry run at phase 22's cells, rank by rank --------------------------
+    jobs = []
+    for label, run in counted.items():
+        cfg = run["cfg"]           # every field, so the worker builds this config
+        overrides = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+        world = math.prod(run["mesh"].values())
+        for rank in range(world):
+            jobs.append((label, rank, (world, rank, run["mesh"], cfg.name, run["rows"],
+                                       overrides, run["opts"], run["optimizer"])))
+    t0 = time.perf_counter()
+    with concurrent.futures.ProcessPoolExecutor(
+            max_workers=len(jobs),
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        futures = [(label, rank, pool.submit(dry_rank_cell, *job))
+                   for label, rank, job in jobs]
+        recs = [(label, rank, f.result(timeout=600)) for label, rank, f in futures]
+    t_cells = time.perf_counter() - t0
+    for label, rank, rec in recs:
+        real = counted[label]["ranks"][rank]
+        parts = rec["memory"]["argument_parts"]
+        checks = {"params bytes": (real["params"], parts["params"]),
+                  "opt_state bytes": (real["opt_state"], parts["opt_state"]),
+                  "exchange bytes": (real["collective_bytes"], rec["collective_bytes"]),
+                  "flops": (real["flops"], rec["flops"])}
+        same = {k: a == b for k, (a, b) in checks.items()}
+        print(f"[23b {label} rank {rank}] {rec['arch']} ({rec['layers']} layers) "
+              f"{counted[label]['rows'][0]} x {counted[label]['rows'][1]} tokens, mesh "
+              f"{rec['mesh']}, SGD: real step {real['step']} on the card / dry run on meta: "
+              f"params {real['params']} / {parts['params']} B, optimizer state "
+              f"{real['opt_state']} / {parts['opt_state']} B, exchanges "
+              f"{sum(real['collective_bytes'].values())} / "
+              f"{sum(rec['collective_bytes'].values())} B "
+              f"({ {k: v for k, v in rec['collective_bytes'].items() if v} }), FLOPs "
+              f"{real['flops']} / {rec['flops']}; equal: {same}; kernels on meta "
+              f"{rec['kernels']}, bounded {rec['bounded']} | {card}", flush=True)
+        assert all(same.values()), (label, rank, checks)
+    print(f"[23b cells] {len(recs)} rank records built and run on meta in "
+          f"{len(recs)} worker processes in {t_cells:.1f} s | {card}", flush=True)
+
+    # ---- 23c: sharded serving on the card --------------------------------------------
+    cfg = get_config("smollm-360m")
+    opts = lm.TrainOptions(loss="heat", remat="none", attn_chunk=SHARD_SERVE_S,
+                           cache_dtype=torch.float32)
+    s, n = SHARD_SERVE_S, SHARD_SERVE_STEPS
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(23)
+    toks = torch.randint(0, cfg.vocab, (SHARD_SERVE_B, s + n), generator=gen, device=dev)
+    params = lm.init_params(0, cfg, device=dev)
+    condition_attention_(params, cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = lm.prefill(params, {"tokens": toks[:, :s]}, cfg, opts, device=dev)
+    torch.cuda.synchronize()
+    ref_prefill_ms = 1e3 * (time.perf_counter() - t0)
+    ref = {"prefill": logits.cpu().numpy(), "decode": []}
+    cache = lm.pad_cache(cache, cfg, s + n)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for p in range(s, s + n):
+        step, cache = lm.decode_step(params, cache, toks[:, p:p + 1], p, cfg, opts,
+                                     device=dev)
+        ref["decode"].append(step[:, 0].cpu().numpy())
+    torch.cuda.synchronize()
+    ref_decode_ms = 1e3 * (time.perf_counter() - t0) / n
+    del params, cache, logits, step
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = run_ranks(lm_serve_shard_rank, 4, args=(cfg, opts, toks.cpu().numpy()),
+                      backend="gloo", device="cuda", timeout=600)
+    t_ranks = time.perf_counter() - t0
+    pre_err = max(float(np.abs(r["prefill"] - ref["prefill"]).max()) for r in ranks)
+    dec_err = max(float(np.abs(a - b).max()) for r in ranks
+                  for a, b in zip(r["decode"], ref["decode"]))
+    r0 = ranks[0]
+    want = r0["prefill_next"]
+    rel = float(np.abs(want - r0["decode"][0]).max()) / (float(np.abs(want).max()) + 1e-9)
+    assert pre_err <= SHARD_SERVE_ATOL and dec_err <= SHARD_SERVE_ATOL, (pre_err, dec_err)
+    assert rel < DECODE_REL, rel
+    assert all(r["placed"] > 0 for r in ranks)
+    # each data rank serves its own rows: a decode step's only exchange over
+    # the data group is the whole batch's fp32 logits, never the cache
+    logits_bytes = SHARD_SERVE_B * cfg.vocab * 4
+    assert all(r["decode_exchange_by_axes"].get("data") == logits_bytes
+               for r in ranks), [r["decode_exchange_by_axes"] for r in ranks]
+    exch = {k: v for k, v in r0["exchange_bytes"].items() if v}
+    print(f"[23c shard serve] smollm-360m (32 layers, d=960, vocab 49152, the "
+          f"attention conditioned), {SHARD_SERVE_B} prompts of {s} tokens then {n} "
+          f"decode steps, fp32 cache, 4 gloo ranks sharing card 0 at data=2 x model=2 "
+          f"(the cache held as each rank's slices: {r0['placed']} leaves split, "
+          f"{r0['local_cache_gb']:.4f} GB a rank): prefill logits max abs diff "
+          f"{pre_err:.3e}, decode logits {dec_err:.3e} against the unsharded run (tol "
+          f"{SHARD_SERVE_ATOL:g}); decode at position {s} against the sharded prefill of "
+          f"{s + 1} tokens rel {rel:.3e} (< {DECODE_REL:g}); prefill "
+          f"{r0['prefill_ms']:.1f} ms, decode {r0['decode_ms']:.1f} ms a step (unsharded "
+          f"{ref_prefill_ms:.1f} / {ref_decode_ms:.1f} ms); rank 0's exchanges: prefill, "
+          f"cache gather and place {exch} B, a decode step by group axes "
+          f"{r0['decode_exchange_by_axes']} B (over data only the logits, {logits_bytes} "
+          f"B: each data rank serves its own {SHARD_SERVE_B // 2} rows); "
+          f"the four ranks' call took {t_ranks:.1f} s | {card}", flush=True)
+    secs = time.perf_counter() - t_phase
+    print(f"[23 dryrun] phase 23 took {secs:.1f} s | {card}", flush=True)
+    return secs
+
+
+def sanitize_phase(dev, card: str, ds, counters) -> float:
+    """Phase 24: the sanitizers on the card.  ``MF_100M_PALLAS`` warmed
+    outside a region, then 3 windows of ``EpochExecutor`` inside
+    ``sanitize(rank_promotion=None, trace_budgets={"epoch_executor.window":
+    1})`` with kernels #1, #2 and #6 launching and each window's losses read
+    at ``handle.edge()``; ``donation_report`` on a warm window; a warm
+    ``BatchingRecommender.recommend_many`` of 20 users inside a region with
+    one call shape; a planted ``.item()`` on a CUDA tensor, which must
+    raise.  Returns the phase's seconds."""
+    import numpy as np
+    import torch
+
+    from repro_torch.analysis import TransferError, donation_report, sanitize
+    from repro_torch.configs.heat_mf import MF_100M_PALLAS
+    from repro_torch.core import mf
+    from repro_torch.data import pipeline
+    from repro_torch.launch.server import BatchingRecommender
+    from repro_torch.train import trainer
+    t_phase = time.perf_counter()
+    cfg = MF_100M_PALLAS
+    dds = pipeline.device_cf_dataset(ds, dev)
+    body = mf.make_scan_body(cfg, lambda s: pipeline.cf_batch_device(dds, 0, s, B), 0)
+    executor = trainer.EpochExecutor(body, WINDOW, trace_budget=1)
+    state = mf.init_mf(0, cfg, device=dev)
+    state, _ = executor.run(state, 0, WINDOW)            # warm, outside
+    torch.cuda.synchronize()
+    for c in counters:
+        c.reset()
+    losses, window_ms = [], []
+    with sanitize(rank_promotion=None,
+                  trace_budgets={"epoch_executor.window": 1}) as handle:
+        handle.adopt("epoch_executor.window", executor.trace_counter)
+        for w in range(1, 4):
+            t0 = time.perf_counter()
+            state, window = executor.run(state, w * WINDOW, WINDOW)
+            with handle.edge():
+                losses += window.cpu().tolist()
+            window_ms.append(1e3 * (time.perf_counter() - t0) / WINDOW)
+    launches = {c.name: c.count() for c in counters if c.count()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, window = executor.run(state, 4 * WINDOW, WINDOW)
+    losses_plain = window.cpu().tolist()
+    plain_ms = 1e3 * (time.perf_counter() - t0) / WINDOW
+    assert launches == {"ccl_stats": 3 * WINDOW, "ccl_bwd": 3 * WINDOW,
+                        "gather_fma": 6 * WINDOW}, launches
+    assert executor.trace_counter.count == 1 and all(math.isfinite(x) for x in losses)
+    assert all(math.isfinite(x) for x in losses_plain)
+    rep = donation_report(executor.run, state, 5 * WINDOW, WINDOW, min_bytes=1 << 12)
+    reused = {p for p, _, hit in rep.details if hit}
+    assert {"[0].params.user_table", "[0].params.item_table"} <= reused, str(rep)
+    print(f"[24a sanitize] MF_100M_PALLAS batch {B}: 3 windows of {WINDOW} steps inside "
+          f"sanitize(rank_promotion=None, trace_budgets={{'epoch_executor.window': 1}}) "
+          f"(the readback guard and torch.cuda's sync debug mode 'error'), each window's "
+          f"losses read at handle.edge(): guard-clean, one window length, launches "
+          f"{launches}, losses {losses[0]:.4f} -> {losses[-1]:.4f}; ms a step in each "
+          f"guarded window {[round(x, 2) for x in window_ms]} (a process's first "
+          f"dispatch-mode region pays one-time imports), {plain_ms:.2f} unguarded; a "
+          f"warm window's carried "
+          f"tensors: {rep.reused} reused in place, {rep.copied} copied "
+          f"({rep.copied_bytes} B: "
+          f"{[p for p, _, hit in rep.details if not hit]}) | {card}", flush=True)
+
+    server_state = mf.MFState(mf.MFParams(state.params.user_table, state.params.item_table,
+                                          None), None, None, 0)
+    with BatchingRecommender(server_state, 10, max_batch=8, max_wait_ms=1.0) as server:
+        assert server.trace_count == 1
+        t0 = time.perf_counter()
+        with sanitize(rank_promotion=None,
+                      trace_budgets={"batching_recommender": 1}) as handle:
+            handle.adopt("batching_recommender", server.trace_counter)
+            out = server.recommend_many(np.arange(20))
+        t_serve = time.perf_counter() - t0
+        assert out.shape == (20, 10) and server.trace_count == 1
+    planted = False
+    try:
+        with sanitize(rank_promotion=None):
+            torch.ones(4, device=dev).sum().item()
+    except TransferError as e:
+        planted = "Disallowed" in str(e)
+    assert planted, "a planted .item() on the card did not raise"
+    print(f"[24b sanitize] BatchingRecommender over the trained {cfg.num_items} items, "
+          f"max_batch 8: recommend_many of 20 users (3 calls, padded) inside a region in "
+          f"{1e3 * t_serve:.1f} ms, guard-clean, one call shape; a planted .item() of a "
+          f"CUDA tensor inside a region raised TransferError: {planted} | {card}",
+          flush=True)
+    del state, executor, dds
+    torch.cuda.empty_cache()
+    secs = time.perf_counter() - t_phase
+    print(f"[24 sanitize] phase 24 took {secs:.1f} s | {card}", flush=True)
     return secs
 
 
@@ -3483,10 +3873,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     kernels += audio_phase(dev, card, flush, counters)
     torch.cuda.empty_cache()
-    t_lm_shard = lm_sharding_phase(dev, card, counters)
+    t_lm_shard, counted = lm_sharding_phase(dev, card, counters)
+    torch.cuda.empty_cache()
+    t_dry = dryrun_phase(dev, card, counted)
+    torch.cuda.empty_cache()
+    t_san = sanitize_phase(dev, card, ds, counters)
 
-    print(f"[total] all 22 phases in {time.perf_counter() - t_start:.1f} s (phase 18: "
-          f"{t_shard:.1f} s, phase 22: {t_lm_shard:.1f} s) | {card}", flush=True)
+    print(f"[total] all 24 phases in {time.perf_counter() - t_start:.1f} s (phase 18: "
+          f"{t_shard:.1f} s, phase 22: {t_lm_shard:.1f} s, phase 23: {t_dry:.1f} s, "
+          f"phase 24: {t_san:.1f} s) | {card}", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)
     # The run uses one card (card 0), whatever else the machine exposes.

@@ -113,9 +113,23 @@ def fold_in(key: int, data: int) -> int:
     return _splitmix64((key & _M64) ^ _splitmix64(data & _M64))
 
 
+class _MetaGenerator(torch.Generator):
+    """A host generator that reports the ``meta`` device: torch has no
+    generator on ``meta``, but its random factories accept a host one with
+    ``device="meta"`` and draw nothing, so every ``device=gen.device`` draw
+    of the port makes a ``meta`` tensor of the right shape."""
+
+    @property
+    def device(self) -> torch.device:
+        """``meta``."""
+        return torch.device("meta")
+
+
 def generator(key: int, device) -> torch.Generator:
-    """A fresh ``torch.Generator`` on ``device`` seeded with ``key``."""
-    gen = torch.Generator(device=device)
+    """A fresh ``torch.Generator`` on ``device`` seeded with ``key`` (on
+    ``meta``, a :class:`_MetaGenerator`)."""
+    meta = torch.device(device).type == "meta"
+    gen = _MetaGenerator() if meta else torch.Generator(device=device)
     gen.manual_seed(key & _M64)
     return gen
 

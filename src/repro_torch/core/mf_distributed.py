@@ -41,10 +41,12 @@ collectives (``distributed/sharding.py``):
 Every cross-rank float sum is an all-gather and a sum in rank order, so two
 sharded runs agree bit for bit.  A run tracks the single-device run to
 float rounding: the negative partial sums and the loss add in another order.
+Int8 tables train single-device, as in the reference.
 
-The dry-run pieces (``MF_SHAPES``, ``abstract_state``, ``abstract_batch``,
-``build_mf_cell``) wait for the dry run; int8 tables train single-device,
-as in the reference.
+The dry run's pieces: :data:`MF_SHAPES` (the reference's global batches),
+:func:`abstract_state` and :func:`abstract_batch` (empty stand-ins on
+``meta``) and :func:`build_mf_cell`, one rank's sharded step on ``meta``
+(``launch/dryrun.py::lower_mf_cell``).
 """
 from __future__ import annotations
 
@@ -60,6 +62,21 @@ from repro_torch.core.engine import SampleContext, StepEngine, resolve_engine
 from repro_torch.distributed import sharding as shd
 from repro_torch.distributed.sharding import P
 from repro_torch.models.params import fit_spec
+
+
+@dataclasses.dataclass(frozen=True)
+class MFShapeConfig:
+    """Input shape of an MF dry-run cell: the global batch of
+    interactions."""
+
+    name: str
+    global_batch: int
+
+
+MF_SHAPES = {
+    "mf_train_64k": MFShapeConfig("mf_train_64k", 65536),
+    "mf_train_1m": MFShapeConfig("mf_train_1m", 1048576),
+}
 
 
 def _has_attn_q(cfg: mf.MFConfig) -> bool:
@@ -87,6 +104,49 @@ def state_specs(cfg: mf.MFConfig, mesh) -> mf.MFState:
     accum = (agg.AccumulatorState(grad_sum=aggregator, count=P())
              if cfg.history_len > 0 else None)
     return mf.MFState(mf.MFParams(user, item, aggregator), tile, accum, P())
+
+
+def abstract_state(cfg: mf.MFConfig, dtype=torch.float32,
+                   plan=None) -> mf.MFState:
+    """Empty stand-ins of an :class:`~repro_torch.core.mf.MFState` on
+    ``meta`` (nothing is allocated): the tables, the tile
+    (int64 ids), the aggregator and its accumulator, host-int counters.
+    With ``plan`` (an :class:`MFShardingPlan`) the tables are this rank's
+    rows, built at their size directly."""
+    k = cfg.emb_dim
+
+    def empty(*shape, dt=dtype):
+        return torch.empty(shape, dtype=dt, device="meta")
+
+    users, items = cfg.num_users, cfg.num_items
+    if plan is not None:
+        users = plan.users.own[1] - plan.users.own[0]
+        items = plan.items.own[1] - plan.items.own[0]
+    aggregator = accum = None
+    if cfg.history_len > 0:
+        aggregator = agg.AggregatorParams(
+            empty(k, k), empty(k, k) if _has_attn_q(cfg) else None)
+        accum = agg.AccumulatorState(agg.AggregatorParams(
+            empty(k, k), empty(k, k) if _has_attn_q(cfg) else None), 0)
+    tile = (samplers.TileState(empty(cfg.tile_size, dt=torch.int64),
+                               empty(cfg.tile_size, k), 0)
+            if cfg.tile_size > 0 else None)
+    return mf.MFState(mf.MFParams(empty(users, k), empty(items, k), aggregator),
+                      tile, accum, 0)
+
+
+def abstract_batch(cfg: mf.MFConfig, global_batch: int) -> mf.Batch:
+    """Empty stand-in of a global batch on ``meta`` (int64 ids, the fp32
+    history mask)."""
+    hist = cfg.history_len
+
+    def empty(shape, dt=torch.int64):
+        return torch.empty(shape, dtype=dt, device="meta")
+
+    return mf.Batch(
+        user_ids=empty((global_batch,)), pos_ids=empty((global_batch,)),
+        hist_ids=empty((global_batch, hist)) if hist else None,
+        hist_mask=empty((global_batch, hist), torch.float32) if hist else None)
 
 
 def batch_specs(cfg: mf.MFConfig, mesh, global_batch: int) -> mf.Batch:
@@ -363,3 +423,26 @@ def sharded_train_step(plan: MFShardingPlan, state: mf.MFState,
                                             cfg.flush_every, group=group)
     return mf.MFState(mf.MFParams(new_user, new_item, aggregator), tile,
                       accum, state.step + 1), loss
+
+
+def build_mf_cell(cfg: mf.MFConfig, mesh, global_batch: int,
+                  engine: Optional[StepEngine] = None):
+    """The dry run's program for one rank's sharded HEAT step (the
+    reference's ``build_mf_cell``): returns ``(fn, args, specs, donate)``.
+
+    ``fn(state, batch, rng)`` runs :func:`sharded_train_step` under
+    ``mesh``'s plan with ``engine`` (the config's by default); ``args`` are
+    this rank's part of the state (:func:`abstract_state` with the plan)
+    and the global batch, empty on ``meta``, and the step key; ``specs``
+    the state's and the batch's fitted spec trees and the key's; ``donate``
+    names the argument the step updates in place (the state)."""
+    if engine is None:
+        engine = resolve_engine(cfg)
+    plan = make_sharding_plan(cfg, mesh)
+
+    def fn(state, batch, rng):
+        return sharded_train_step(plan, state, batch, rng, cfg, engine=engine)
+
+    args = (abstract_state(cfg, plan=plan), abstract_batch(cfg, global_batch),
+            0)
+    return fn, args, (plan.specs, batch_specs(cfg, mesh, global_batch), P()), (0,)

@@ -75,6 +75,31 @@ def tile_refresh(state: TileState, gen: torch.Generator, item_table,
     return TileState(state.tile_ids, state.tile_emb, state.step + 1)
 
 
+def tile_sample(state: TileState, gen: torch.Generator, shape):
+    """Negatives drawn *from the tile*: ``(global ids, their rows, the
+    local slots)``, the slots uniform over the tile from ``gen``.  The rows
+    come from the small resident copy, not the table."""
+    local = torch.randint(0, state.tile_ids.shape[0], tuple(shape),
+                          generator=gen, device=gen.device)
+    return state.tile_ids[local], state.tile_emb[local], local
+
+
+def tile_writeback(state: TileState, local_idx, new_rows) -> TileState:
+    """Write updated rows back into the tile copy by local slot: values,
+    not adds, and of several writes to one slot the last wins, as the
+    reference's ``.at[].set`` resolves them (here deterministically: each
+    slot takes the row of its highest position)."""
+    idx = local_idx.reshape(-1)
+    rows = new_rows.reshape(-1, new_rows.shape[-1])
+    n1 = state.tile_ids.shape[0]
+    pos = torch.arange(idx.shape[0], device=idx.device)
+    last = torch.full((n1,), -1, dtype=pos.dtype, device=idx.device)
+    last = last.scatter_reduce(0, idx, pos, "amax")
+    written = rows[last.clamp_min(0)].to(state.tile_emb.dtype)
+    return state._replace(tile_emb=torch.where(
+        (last >= 0)[:, None], written, state.tile_emb))
+
+
 def tile_apply_grads(state: TileState, local_idx, grads, lr: float) -> TileState:
     """SGD write-through on the tile copy by local slot (duplicates add)."""
     g = grads.reshape(-1, grads.shape[-1])
@@ -103,6 +128,27 @@ def tile_apply_global_grads_many(state: TileState, groups, lr: float) -> TileSta
     ids, grads = tiling.concat_groups(groups)
     return state._replace(tile_emb=tiling.tile_write_through(
         state.tile_ids, state.tile_emb, ids, grads, lr))
+
+
+def tile_apply_global_grads(state: TileState, global_ids, grads,
+                            lr: float) -> TileState:
+    """Write-through of updates addressed by *global* item id (positives,
+    history rows that live in the tile): the sorted-intersection
+    write-through (``tiling.tile_write_through``), duplicates adding."""
+    return state._replace(tile_emb=tiling.tile_write_through(
+        state.tile_ids, state.tile_emb, global_ids, grads, lr))
+
+
+def tile_apply_global_grads_mask(state: TileState, global_ids, grads,
+                                 lr: float) -> TileState:
+    """The O(N1 * B) membership-mask write-through that the sorted
+    intersection replaced: an (N1, B) equality mask applied as one matmul.
+    Kept as the baseline the backends benchmark contrasts, and as a second
+    oracle."""
+    ids = global_ids.reshape(-1)
+    g = grads.reshape(-1, grads.shape[-1])
+    match = (state.tile_ids[:, None] == ids[None, :]).to(g.dtype)
+    return state._replace(tile_emb=state.tile_emb - lr * (match @ g))
 
 
 class ShardedTileState(NamedTuple):

@@ -44,6 +44,22 @@ the owner's rows (:class:`ShardedRows`, the vocab tables).
 Gloo cannot address CUDA memory for an all-gather, so a gloo group stages
 CUDA tensors through the host (two ranks sharing one card run gloo; NCCL
 refuses two ranks on one card).  A group of one rank exchanges nothing.
+
+:class:`ExchangeCounter` counts the bytes every exchange moves, under the
+reference's five collective kinds (:data:`EXCHANGE_KINDS`): each
+collective adds the bytes of its result on this rank, as the reference's
+dry run sums the result shapes of its HLO collectives.  Every exchange
+here is an all-gather and is counted as one, whatever the caller computes
+with it: ``sum_over`` (an all-reduce's work) and ``gather_leaves``'
+backward over a data group (a reduce-scatter's) gather every member's
+whole operand and sum it locally, so their result is the group's size
+times the operand, where an all-reduce's is the operand and a
+reduce-scatter's a group's share of it.  The other four kinds stay 0.
+With no counter active the count costs one ``None`` test.  On ``meta`` tensors (the dry run) the two places here whose
+sizes depend on the data take a fixed size and name themselves in the
+counter's ``bounded``: :meth:`RowShard.owned` keeps the whole update list,
+masked (the reference's fixed-shape form), and :func:`all_gather_rows`
+takes every member's row count as this rank's.
 """
 from __future__ import annotations
 
@@ -62,6 +78,10 @@ from repro_torch.core import tiling
 DATA_AXES = ("pod", "data")     # batch rows shard over every present data-like axis
 MODEL_AXIS = "model"
 AXES = ("pod", "data", "model")
+
+#: the reference's collective kinds (``launch/dryrun.py::_COLLECTIVES``).
+EXCHANGE_KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+                  "collective-permute")
 
 #: seconds a rank waits on a collective, a rendezvous or a subgroup's
 #: creation before it fails (a dead peer must fail a run, not hang it).
@@ -276,6 +296,54 @@ def model_shards() -> int:
 
 
 # ----------------------------------------------------------------------------
+# The exchange byte counter
+# ----------------------------------------------------------------------------
+
+class ExchangeCounter:
+    """Bytes of every exchange issued while it is active, by kind.
+
+    ``with ExchangeCounter() as c: ...`` makes ``c`` the active counter
+    (counters nest; the innermost counts).  ``bytes[kind]`` sums the
+    result bytes of each collective on this rank by the reference's kinds
+    (every exchange here is an all-gather, whose result is the group's
+    size times the packed buffer), ``by_axes[axes]`` the same bytes by the
+    axes of the group they crossed, and ``bounded`` names the places whose
+    size was taken as an upper bound on ``meta`` tensors (the module
+    docstring)."""
+
+    def __init__(self):
+        self.bytes = dict.fromkeys(EXCHANGE_KINDS, 0)
+        self.by_axes: dict = {}
+        self.bounded: set = set()
+        self._prev = None
+
+    @property
+    def total(self) -> int:
+        """Bytes of every kind together."""
+        return sum(self.bytes.values())
+
+    def __enter__(self):
+        global _COUNTER
+        self._prev, _COUNTER = _COUNTER, self
+        return self
+
+    def __exit__(self, *exc):
+        global _COUNTER
+        _COUNTER = self._prev
+        return False
+
+
+_COUNTER: Optional[ExchangeCounter] = None
+
+
+def note_bounded(name: str) -> None:
+    """Record in the active counter that the exchange ``name`` took an
+    upper bound of its size (a ``meta`` run); nothing without one."""
+    if _COUNTER is not None:
+        _COUNTER.bounded.add(name)
+
+
+# ----------------------------------------------------------------------------
 # Exchanges
 # ----------------------------------------------------------------------------
 
@@ -283,12 +351,12 @@ def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
-def all_gather_parts(parts: Sequence[torch.Tensor],
-                     group: AxisGroup) -> list:
+def all_gather_parts(parts: Sequence[torch.Tensor], group: AxisGroup) -> list:
     """Every member's ``parts`` in group order: ``out[j][i]`` is member
     ``j``'s ``parts[i]``.  Every member must pass parts of the same shapes
     and dtypes.  The parts travel packed in one byte buffer (each part
-    padded to 8 bytes), so this is one collective."""
+    padded to 8 bytes), so this is one collective, counted by the active
+    :class:`ExchangeCounter`."""
     if group.size == 1:
         return [list(parts)]
     dev = parts[0].device
@@ -302,6 +370,10 @@ def all_gather_parts(parts: Sequence[torch.Tensor],
     send = flat.cpu() if staged else flat
     recv = [torch.empty_like(send) for _ in range(group.size)]
     dist.all_gather(recv, send, group=group.pg)
+    if _COUNTER is not None:
+        n = group.size * _nbytes(send)
+        _COUNTER.bytes["all-gather"] += n
+        _COUNTER.by_axes[group.axes] = _COUNTER.by_axes.get(group.axes, 0) + n
     got = torch.stack(recv).to(dev) if staged else torch.stack(recv)
     return [[got[j, o:o + s].view(p.dtype).reshape(p.shape)
              for p, o, s in zip(parts, offsets, sizes)]
@@ -310,7 +382,7 @@ def all_gather_parts(parts: Sequence[torch.Tensor],
 
 def sum_over(tensors: Sequence[torch.Tensor], group: AxisGroup) -> list:
     """Each tensor summed over the group's members, in group order, on every
-    member (the same bits everywhere); one collective for all of them."""
+    member (the same bits everywhere); one all-gather for all of them."""
     if group.size == 1:
         return list(tensors)
     members = all_gather_parts(tensors, group)
@@ -402,6 +474,12 @@ class RowShard:
             return ids, grads
         lo, hi = self.own
         keep = (ids >= lo) & (ids < hi)
+        if ids.device.type == "meta":
+            # No data to size the kept list: the whole list, the other
+            # ranks' entries masked to a zero update of local row 0.
+            note_bounded("RowShard.owned")
+            return (torch.where(keep, ids - lo, 0),
+                    torch.where(keep[:, None], grads, 0.0))
         return ids[keep] - lo, grads[keep]
 
     def gather(self, local: torch.Tensor) -> torch.Tensor:
@@ -429,7 +507,12 @@ def all_gather_rows(x: torch.Tensor, group: AxisGroup, offset: bool = False):
     if group.size == 1:
         return (x, 0) if offset else x
     n = torch.tensor([x.shape[0]], dtype=torch.int64, device=x.device)
-    counts = [int(c[0][0]) for c in all_gather_parts([n], group)]
+    got = all_gather_parts([n], group)
+    if x.device.type == "meta":      # no counts to read: every member's is ours
+        note_bounded("all_gather_rows")
+        counts = [x.shape[0]] * group.size
+    else:
+        counts = [int(c[0][0]) for c in got]
     parts = all_gather_parts([pad_rows(x, max(counts))], group)
     rows = torch.cat([p[0][:c] for p, c in zip(parts, counts)])
     return (rows, sum(counts[:group.index])) if offset else rows

@@ -151,11 +151,14 @@ class LaunchCounter:
     ``count("cuda")`` is the number of kernel launches on the card (bumped
     where the wrapper launches its kernel and nowhere else); ``count("cpu")``
     counts the wrapper's plain-version calls on CPU tensors, so the CPU
-    tests can hold the one-dispatch-per-step contract too."""
+    tests can hold the one-dispatch-per-step contract too; ``count("meta")``
+    counts the calls on ``meta`` tensors (the dry run), which allocate the
+    kernel's outputs on ``meta`` and neither launch nor run the plain
+    version."""
 
     def __init__(self, name: str):
         self.name = name
-        self._counts = {"cuda": 0, "cpu": 0}
+        self._counts = {"cuda": 0, "cpu": 0, "meta": 0}
 
     def bump(self, device_type: str) -> None:
         """Record one dispatch on ``device_type``."""
@@ -166,5 +169,5 @@ class LaunchCounter:
         return self._counts[device_type]
 
     def reset(self) -> None:
-        """Zero both counts."""
-        self._counts = {"cuda": 0, "cpu": 0}
+        """Zero every count."""
+        self._counts = {"cuda": 0, "cpu": 0, "meta": 0}

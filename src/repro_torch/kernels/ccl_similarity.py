@@ -19,7 +19,8 @@ and ``::ccl_bwd_shared_pallas``.  The kernel sources (``csrc/ccl_stats.cu``,
 say what bounds each on the card and how the design meets it.
 
 Dispatch: a CPU tensor goes to the plain version; a CUDA tensor launches the
-kernel or raises.  Each wrapper counts its dispatches (``STATS_LAUNCHES``,
+kernel or raises; a ``meta`` tensor (the dry run) gets the kernel's outputs,
+empty on ``meta`` with its shapes and dtypes, and runs nothing.  Each wrapper counts its dispatches (``STATS_LAUNCHES``,
 ``BWD_LAUNCHES``, ``SHARED_STATS_LAUNCHES``, ``SHARED_BWD_LAUNCHES``; see :class:`repro_torch.kernels._build.LaunchCounter`).
 """
 from __future__ import annotations
@@ -88,7 +89,7 @@ def _shapes(user, pos, negs) -> tuple[int, int, int]:
 
 
 def _device_type(t: torch.Tensor, name: str) -> str:
-    if t.device.type not in ("cpu", "cuda"):
+    if t.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"{name}: no kernel or plain version for {t.device}")
     return t.device.type
 
@@ -97,9 +98,14 @@ def ccl_stats(user, pos, negs):
     """user (B, K), pos (B, K), negs (B, n, K) -> uu, pp, up (B, 1) and
     nn, un (B, n), fp32."""
     b, n, k = _shapes(user, pos, negs)
-    if _device_type(user, "ccl_stats") == "cpu":
+    kind = _device_type(user, "ccl_stats")
+    if kind == "cpu":
         STATS_LAUNCHES.bump("cpu")
         return ccl_stats_plain(user, pos, negs)
+    if kind == "meta":
+        STATS_LAUNCHES.bump("meta")
+        return tuple(torch.empty(shape, device="meta")
+                     for shape in ((b, 1),) * 3 + ((b, n),) * 2)
     _build.check_operands("ccl_stats", user.device,
                           [(t, torch.float32) for t in (user, pos, negs)])
     if k > 12_288:
@@ -125,10 +131,15 @@ def ccl_bwd(user, pos, negs, uu, pp, up, nn, un, g, *, mu: float,
     already divided by B, as a one-element fp32 tensor on the inputs' device.
     Returns du (B, K), dp (B, K), dn (B, n, K)."""
     b, n, k = _shapes(user, pos, negs)
-    if _device_type(user, "ccl_bwd") == "cpu":
+    kind = _device_type(user, "ccl_bwd")
+    if kind == "cpu":
         BWD_LAUNCHES.bump("cpu")
         return ccl_bwd_plain(user, pos, negs, uu, pp, up, nn, un, g, mu=mu,
                              theta=theta)
+    if kind == "meta":
+        BWD_LAUNCHES.bump("meta")
+        return tuple(torch.empty(x.shape, device="meta")
+                     for x in (user, pos, negs))
     _build.check_operands(
         "ccl_bwd", user.device,
         [(t, torch.float32) for t in (user, pos, negs, uu, pp, up, nn, un, g)])
@@ -205,9 +216,14 @@ def ccl_stats_shared(user, pos, negs):
     """user (T, K), pos (T, K), negs (n, K) shared by every row -> uu, pp,
     up (T, 1), nn (1, n) and un (T, n), fp32."""
     t, n, k = _shared_shapes(user, pos, negs)
-    if _device_type(user, "ccl_stats_shared") == "cpu":
+    kind = _device_type(user, "ccl_stats_shared")
+    if kind == "cpu":
         SHARED_STATS_LAUNCHES.bump("cpu")
         return ccl_stats_shared_plain(user, pos, negs)
+    if kind == "meta":
+        SHARED_STATS_LAUNCHES.bump("meta")
+        return tuple(torch.empty(shape, device="meta")
+                     for shape in ((t, 1),) * 3 + ((1, n), (t, n)))
     _build.check_operands("ccl_stats_shared", user.device,
                           [(x, torch.float32) for x in (user, pos, negs)])
     uu, pp, up = (torch.empty((t, 1), device=user.device) for _ in range(3))
@@ -241,10 +257,15 @@ def ccl_bwd_shared(user, pos, negs, uu, pp, up, nn, un, w, g, *, mu: float,
     inputs' device.  Returns du (T, K), dp (T, K) and dn (n, K), ``dn``
     summed over every row in a fixed order (no atomics)."""
     t, n, k = _shared_shapes(user, pos, negs)
-    if _device_type(user, "ccl_bwd_shared") == "cpu":
+    kind = _device_type(user, "ccl_bwd_shared")
+    if kind == "cpu":
         SHARED_BWD_LAUNCHES.bump("cpu")
         return ccl_bwd_shared_plain(user, pos, negs, uu, pp, up, nn, un, w, g,
                                     mu=mu, theta=theta)
+    if kind == "meta":
+        SHARED_BWD_LAUNCHES.bump("meta")
+        return tuple(torch.empty(x.shape, device="meta")
+                     for x in (user, pos, negs))
     _build.check_operands(
         "ccl_bwd_shared", user.device,
         [(x, torch.float32)

@@ -17,7 +17,8 @@ replaces ``src/repro/kernels/embedding_update.py::gather_dequant_rows``, and
 ``csrc/gather_dequant.cu`` says what bounds it on the card.
 
 Dispatch: a CPU tensor goes to the plain version; a CUDA tensor launches the
-kernel or raises.  :func:`launch_count` counts the gather-FMA dispatches, so
+kernel or raises; a ``meta`` tensor (the dry run) gets the kernel's output
+shape and runs nothing.  :func:`launch_count` counts the gather-FMA dispatches, so
 callers can hold the one-launch-per-step contract of ``row_update_many``;
 ``GATHER_DEQUANT_LAUNCHES`` counts the gather-dequant ones.
 """
@@ -78,6 +79,9 @@ def gather_fma_rows_(table, sids, order, grads, lr: float):
     if table.device.type == "cpu":
         GATHER_FMA_LAUNCHES.bump("cpu")
         return gather_fma_rows_plain_(table, sids, order, grads, lr)
+    if table.device.type == "meta":        # the dry run: nothing to write
+        GATHER_FMA_LAUNCHES.bump("meta")
+        return table
     if table.device.type != "cuda":
         raise ValueError(f"gather_fma_rows_: no kernel for {table.device}")
     _build.check_operands(
@@ -113,6 +117,9 @@ def gather_dequant_rows(q, scale, ids):
     if q.device.type == "cpu":
         GATHER_DEQUANT_LAUNCHES.bump("cpu")
         return gather_dequant_rows_plain(q, scale, ids)
+    if q.device.type == "meta":            # the dry run: the output's shape
+        GATHER_DEQUANT_LAUNCHES.bump("meta")
+        return torch.empty((ids.shape[0], q.shape[1]), device="meta")
     if q.device.type != "cuda":
         raise ValueError(f"gather_dequant_rows: no kernel for {q.device}")
     _build.check_operands(

@@ -30,6 +30,7 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from repro_torch.analysis.sanitize import edge
 from repro_torch.core import mf
 from repro_torch.core import retrieval as rtv
 from repro_torch.optim import quantization as qz
@@ -128,11 +129,17 @@ class BatchingRecommender:
                                  exclude_mask=excl)
 
     def _call(self, padded: np.ndarray) -> np.ndarray:
-        user_ids = torch.as_tensor(padded, dtype=torch.int64, device=self._device)
+        # The batch's upload and its answers' download are the call's two
+        # explicit edges (analysis/sanitize.py).
+        with edge():
+            user_ids = torch.as_tensor(padded, dtype=torch.int64,
+                                       device=self._device)
         with self._lock:
             self._device_calls += 1
             self._shapes.add(tuple(user_ids.shape))     # budget 1: raises
-        return self._recommend(user_ids).cpu().numpy()
+        out = self._recommend(user_ids)
+        with edge():
+            return out.cpu().numpy()
 
     def warmup(self) -> float:
         """One call on a dummy full batch, so the first request finds the
@@ -146,6 +153,12 @@ class BatchingRecommender:
     def trace_count(self) -> int:
         """Distinct padded call shapes issued so far (1 in steady state)."""
         return self._shapes.count
+
+    @property
+    def trace_counter(self) -> ShapeCounter:
+        """The counter of distinct padded call shapes (budget 1), as the
+        reference's server exposes its trace counter."""
+        return self._shapes
 
     @property
     def stats(self) -> dict:

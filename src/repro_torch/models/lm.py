@@ -50,7 +50,16 @@ rank's slices (``params.Shard``): each block makes its layer's leaves
 whole with one ``params.use_tree`` exchange (inside the remat unit, so the
 recompute gathers again), the MoE experts stay split
 (``moe.moe_apply``), and the vocab tables are read through owner-masked
-lookups (:func:`vocab_table`).
+lookups (:func:`vocab_table`).  Serving under a mesh takes the whole batch
+on every rank and runs this rank's rows of it (split over the data group
+where it divides the batch, as training splits them): the logits are
+computed on each rank's vocab rows, gathered over the model group and
+then over the data group in rank order (:func:`_logits`,
+:func:`_all_rows`), and the decode cache is held as this rank's slices
+under ``cache_defs``' fitted specs (``lm_distributed.place_cache``): its
+batch rows are this rank's own, and each decode layer gathers the other
+dimensions of its slices where attention reads them and writes the new
+rows back into the slices it owns.
 """
 from __future__ import annotations
 
@@ -86,9 +95,13 @@ from repro_torch.models.layers import (
 from repro_torch.models.params import (
     ParamDef,
     Shard,
+    abstract,
+    fitted_defs,
     fsdpify,
     materialize,
     partition_specs,
+    sharded_dims,
+    slice_leaf,
     tree_from_items,
     tree_items,
     unbind_leaf,
@@ -210,6 +223,16 @@ def init_params(key: int, cfg: ArchConfig, dtype=torch.float32,
     specs = None if mesh is None else partition_specs(defs, mesh.shape)
     return materialize(key, defs, dtype, mf.resolve_device(device),
                        specs=specs, mesh=mesh)
+
+
+def abstract_params(cfg: ArchConfig, dtype=torch.float32, mesh=None) -> dict:
+    """:func:`model_defs` as empty tensors on ``meta`` (nothing is
+    allocated), for the dry run's builds and memory audits; with ``mesh``,
+    this rank's slices under the fitted specs (``params.abstract``)."""
+    defs = model_defs(cfg)
+    if mesh is not None:
+        defs = fitted_defs(defs, mesh.shape)
+    return abstract(defs, dtype, mesh=mesh)
 
 
 def _positions(cfg: ArchConfig, batch: int, seq: int, device,
@@ -346,6 +369,51 @@ def _kv_rows(cfg: ArchConfig) -> list[int]:
     return [cfg.n_layers]
 
 
+def _layer_rows(leaf):
+    """A stacked (L, ...) cache leaf indexable by layer: the tensor itself
+    (its rows are views), or a ``Shard``'s per-layer slices."""
+    return unbind_leaf(leaf) if isinstance(leaf, Shard) else leaf
+
+
+def _rows_split(leaf, dim: int = 0) -> bool:
+    """Whether a cache leaf splits its batch rows (``dim``: 0 in a layer's
+    slot, 1 in the stacked leaf) over a data group: this rank then serves
+    its own rows (:func:`_serve_rows`)."""
+    return isinstance(leaf, Shard) and any(
+        d == dim and g.over_data
+        for d, g in sharded_dims(leaf.spec, sharding.get_mesh()))
+
+
+def _whole_rows(rows: tuple) -> tuple:
+    """One layer's cache leaves as this rank's rows read them: as they are,
+    or, where they are a mesh's slices, all-gathered in one exchange per
+    group in every dimension but the batch rows split over data."""
+    if not any(isinstance(x, Shard) for x in rows):
+        return tuple(rows)
+    keep = (0,) if any(_rows_split(x) for x in rows) else ()
+    got = use_tree({str(i): x for i, x in enumerate(rows)}, keep=keep)
+    return tuple(got[str(i)] for i in range(len(rows)))
+
+
+def _store(slot, value) -> None:
+    """Write a layer's new cache value (this rank's rows, the rest whole)
+    into its slot: the tensor, or the slice of it that a ``Shard`` owns."""
+    if isinstance(slot, Shard):
+        spec = P(None, *slot.spec[1:]) if _rows_split(slot) else slot.spec
+        slot.local.copy_(slice_leaf(value, spec, sharding.get_mesh()))
+    else:
+        slot.copy_(value)
+
+
+def _write_back(slot: KVCache, whole: KVCache) -> None:
+    """After a decode layer wrote its new row into the K/V it read: the
+    owned slices of sharded slots take it (plain slots were written in
+    place)."""
+    for s, w in zip(slot, whole):
+        if isinstance(s, Shard):
+            _store(s, w)
+
+
 def _run_stack(params: dict, h, cfg: ArchConfig, opts: TrainOptions,
                mode: str = "train", cache=None, pos: Optional[int] = None,
                memory=None):
@@ -391,7 +459,11 @@ def _run_stack(params: dict, h, cfg: ArchConfig, opts: TrainOptions,
 
     if decode:
         members = list(cache.kv) if _interleaved(cfg) else [cache.kv]
+        members = [KVCache(_layer_rows(kvc.k), _layer_rows(kvc.v))
+                   for kvc in members]
         cross = cache.cross_kv
+        if cross is not None:
+            cross = (_layer_rows(cross[0]), _layer_rows(cross[1]))
     else:
         shape = (b, s, cfg.n_kv_heads, cfg.head_dim)
         members = [KVCache(*(torch.empty((n,) + shape, dtype=opts.cache_dtype,
@@ -404,23 +476,28 @@ def _run_stack(params: dict, h, cfg: ArchConfig, opts: TrainOptions,
             cross = tuple(torch.empty(shape, dtype=opts.cache_dtype,
                                       device=h.device) for _ in range(2))
     for lp, moe, m, row in plan:
+        lp = use_tree(lp, skip=("moe",))
         layer_kv = KVCache(members[m].k[row], members[m].v[row])
         mem_kv = None
         if audio:
-            mem_kv = ((cross[0][row], cross[1][row]) if decode
+            mem_kv = (_whole_rows((cross[0][row], cross[1][row])) if decode
                       else encoder_kv(lp["cross"], memory))
+        whole_kv = KVCache(*_whole_rows(layer_kv)) if decode else None
         h, kv = _attn_block(lp, h, cos, sin, cfg, opts, moe=moe,
-                            cache=layer_kv if decode else None, pos=pos,
-                            memory_kv=mem_kv)
-        if not decode:                 # prefill: collect, cast to cache_dtype
+                            cache=whole_kv, pos=pos, memory_kv=mem_kv)
+        if decode:
+            _write_back(layer_kv, whole_kv)
+        else:                          # prefill: collect, cast to cache_dtype
             layer_kv.k.copy_(kv.k)
             layer_kv.v.copy_(kv.v)
             if audio:
                 cross[0][row].copy_(mem_kv[0])
                 cross[1][row].copy_(mem_kv[1])
-    kv = tuple(members) if _interleaved(cfg) else members[0]
-    new_cache = (cache._replace(kv=kv) if decode
-                 else DecodeCache(kv=kv, cross_kv=cross))
+    if decode:
+        new_cache = cache
+    else:
+        kv = tuple(members) if _interleaved(cfg) else members[0]
+        new_cache = DecodeCache(kv=kv, cross_kv=cross)
     return rms_norm(h, use(params["final_norm"]), cfg.norm_eps), new_cache
 
 
@@ -454,7 +531,11 @@ def _run_mamba_stack(params: dict, h, cfg: ArchConfig, opts: TrainOptions,
         return h, None
 
     if decode:
-        mamba, skv = cache.mamba, cache.shared_kv
+        mamba = ssm_mod.MambaCache(_layer_rows(cache.mamba.conv),
+                                   _layer_rows(cache.mamba.state))
+        skv = cache.shared_kv
+        if skv is not None:
+            skv = KVCache(_layer_rows(skv.k), _layer_rows(skv.v))
     else:
         mamba, skv = [], None
         if hybrid:
@@ -466,17 +547,21 @@ def _run_mamba_stack(params: dict, h, cfg: ArchConfig, opts: TrainOptions,
             li = gi * k + i
             if decode:
                 layer_mc = ssm_mod.MambaCache(mamba.conv[li], mamba.state[li])
-                h, mc = _mamba_block(lp, h, cfg, cache=layer_mc)
-                layer_mc.conv.copy_(mc.conv)
-                layer_mc.state.copy_(mc.state)
+                h, mc = _mamba_block(lp, h, cfg, cache=ssm_mod.MambaCache(
+                    *_whole_rows(layer_mc)))
+                _store(layer_mc.conv, mc.conv)
+                _store(layer_mc.state, mc.state)
             else:
                 h, mc = _mamba_block(lp, h, cfg)
                 mamba.append(mc)
         if hybrid:
             layer_kv = KVCache(skv.k[gi], skv.v[gi])
+            whole_kv = KVCache(*_whole_rows(layer_kv)) if decode else None
             h, kv = _shared_block(shared, h, cos, sin, cfg, opts,
-                                  cache=layer_kv if decode else None, pos=pos)
-            if not decode:             # prefill: collect, cast to cache_dtype
+                                  cache=whole_kv, pos=pos)
+            if decode:
+                _write_back(layer_kv, whole_kv)
+            else:                      # prefill: collect, cast to cache_dtype
                 layer_kv.k.copy_(kv.k)
                 layer_kv.v.copy_(kv.v)
     if decode:
@@ -597,16 +682,25 @@ class DecodeCache(NamedTuple):
     cross_kv: Any = None
 
 
+#: the reference's logical specs of the decode cache's leaves: K/V rows
+#: (L, B, S, Hkv, hd) with the batch over the data axes and the KV heads over
+#: ``model``; a Mamba cache's windows (L, B, cw - 1, C) and states
+#: (L, B, h, s, p) with the batch over the data axes (the states' heads over
+#: ``model``).
+KV_SPEC = P(None, sharding.DATA_AXES, "model", None, None)
+CONV_SPEC = P(None, sharding.DATA_AXES, None, None)
+STATE_SPEC = P(None, sharding.DATA_AXES, "model", None, None)
+
+
 def cache_defs(cfg: ArchConfig, batch: int, seq: int) -> DecodeCache:
     """The decode cache's ParamDefs (zeros) for ``batch`` sequences of
     ``seq`` positions, in the layout :func:`prefill` returns."""
     _check_family(cfg)
     shape = (batch, seq, cfg.n_kv_heads, cfg.head_dim)
-    kv_spec = P(None, sharding.DATA_AXES, "model", None, None)
 
     def kv(n):
-        return KVCache(ParamDef((n,) + shape, "zeros", spec=kv_spec),
-                       ParamDef((n,) + shape, "zeros", spec=kv_spec))
+        return KVCache(ParamDef((n,) + shape, "zeros", spec=KV_SPEC),
+                       ParamDef((n,) + shape, "zeros", spec=KV_SPEC))
 
     if cfg.family == "ssm":
         return DecodeCache(mamba=_mamba_cache_defs(cfg, cfg.n_layers, batch))
@@ -618,9 +712,9 @@ def cache_defs(cfg: ArchConfig, batch: int, seq: int) -> DecodeCache:
                  cfg.head_dim)
         return DecodeCache(kv=kv(cfg.n_layers),
                            cross_kv=KVCache(ParamDef(cross, "zeros",
-                                                     spec=kv_spec),
+                                                     spec=KV_SPEC),
                                             ParamDef(cross, "zeros",
-                                                     spec=kv_spec)))
+                                                     spec=KV_SPEC)))
     members = [kv(n) for n in _kv_rows(cfg)]
     return DecodeCache(kv=tuple(members) if _interleaved(cfg) else members[0])
 
@@ -629,12 +723,10 @@ def _mamba_cache_defs(cfg: ArchConfig, L: int, batch: int):
     """ParamDefs (zeros) of L stacked Mamba caches for ``batch`` sequences:
     no dimension grows with the context."""
     d_in, h, p, g, s = ssm_mod._dims(cfg)
-    data = sharding.DATA_AXES
     return ssm_mod.MambaCache(
         conv=ParamDef((L, batch, cfg.conv_width - 1, d_in + 2 * g * s), "zeros",
-                      spec=P(None, data, None, None)),
-        state=ParamDef((L, batch, h, s, p), "zeros",
-                       spec=P(None, data, "model", None, None)))
+                      spec=CONV_SPEC),
+        state=ParamDef((L, batch, h, s, p), "zeros", spec=STATE_SPEC))
 
 
 def pad_cache(cache: DecodeCache, cfg: ArchConfig, max_len: int) -> DecodeCache:
@@ -644,6 +736,10 @@ def pad_cache(cache: DecodeCache, cfg: ArchConfig, max_len: int) -> DecodeCache:
     family's ``cross_kv`` (its rows are the encoder's frames) are left
     alone."""
     def pad(a):
+        if isinstance(a, Shard):
+            raise ValueError("pad_cache takes a whole cache: gather a "
+                             "sharded one first (lm_distributed.gather_cache)"
+                             " and place the padded one again")
         extra = max_len - a.shape[2]
         return a if extra <= 0 else F.pad(a, (0, 0, 0, 0, 0, extra))
 
@@ -660,12 +756,60 @@ def pad_cache(cache: DecodeCache, cfg: ArchConfig, max_len: int) -> DecodeCache:
 
 def _entry_device(params: dict, device) -> torch.device:
     """The device a serving call runs on (the card unless ``device`` names
-    another; raises where there is none), which must hold the parameters."""
+    another, ``meta`` for the dry run; raises where there is none), which
+    must hold the parameters (this rank's slices under a mesh)."""
     dev = mf.resolve_device(device)
-    if params["embed"].device.type != dev.type:
-        raise ValueError(f"the parameters are on {params['embed'].device}, "
+    embed = params["embed"]
+    embed = embed.local if isinstance(embed, Shard) else embed
+    if embed.device.type != dev.type:
+        raise ValueError(f"the parameters are on {embed.device}, "
                          f"the call runs on {dev}: pass device= to match")
     return dev
+
+
+def _logits(h, params: dict, cfg: ArchConfig):
+    """``h @ table.T`` against the output table; under a mesh whose model
+    axis splits the vocab rows, each rank's rows' logits gathered over the
+    model group in rank order (other layouts gather the table whole)."""
+    table = vocab_table(_out_table(params, cfg))
+    if isinstance(table, sharding.ShardedRows):
+        return sharding.all_gather_cat(h @ table.local.T, h.dim() - 1,
+                                       table.shard.group)
+    return h @ table.T
+
+
+def _seq_rows(leaf) -> int:
+    """Positions (dim 2) of a whole or sharded stacked K/V cache leaf."""
+    if not isinstance(leaf, Shard):
+        return leaf.shape[2]
+    n = leaf.local.shape[2]
+    for dim, group in sharded_dims(leaf.spec, sharding.get_mesh()):
+        if dim == 2:
+            n *= group.size
+    return n
+
+
+def _serve_rows(b: int) -> tuple:
+    """``(start, stop)`` of this rank's rows of a served batch of ``b``:
+    under a mesh whose data group divides ``b`` (so ``cache_defs``' fitted
+    specs split the cache's batch rows over it), its share in group order;
+    else every row."""
+    mesh = sharding.active_mesh()
+    group = mesh.group(sharding.DATA_AXES) if mesh is not None else None
+    if group is None or group.size == 1 or b % group.size:
+        return 0, b
+    n = b // group.size
+    return group.index * n, (group.index + 1) * n
+
+
+def _all_rows(logits, b: int):
+    """The logits of this rank's served rows gathered over the data group
+    in rank order into the whole batch's (``logits`` itself when this rank
+    served every row)."""
+    if logits.shape[0] == b:
+        return logits
+    group = sharding.get_mesh().group(sharding.DATA_AXES)
+    return sharding.all_gather_cat(logits, 0, group)
 
 
 def prefill(params: dict, batch: dict, cfg: ArchConfig,
@@ -674,14 +818,25 @@ def prefill(params: dict, batch: dict, cfg: ArchConfig,
     VLM family, ``frames`` for the audio family] -> (last-position logits
     (B, V), the primed :class:`DecodeCache` (S positions of K/V in
     ``opts.cache_dtype``; for the audio family also the encoder's K/V)).
-    Runs without autograd on ``device``."""
+    Runs without autograd on ``device``.  Under a mesh (``params`` this
+    rank's view, the whole batch on every rank) each rank runs its own rows
+    (split over the data group where it divides B, as training splits
+    them), the logits are gathered whole, and the cache is this rank's
+    slices (``lm_distributed.place_cache``)."""
     dev = _entry_device(params, device)
-    batch = {k: v.to(dev) for k, v in batch.items()}
+    b = batch["tokens"].shape[0]
+    lo, hi = _serve_rows(b)
+    batch = {k: (v if hi - lo == b else v[lo:hi]).to(dev)
+             for k, v in batch.items()}
     with torch.no_grad():
         memory = _memory(params, batch, cfg, opts)
         h = embed_inputs(params, batch, cfg)
         h, cache = _run_stack(params, h, cfg, opts, "prefill", memory=memory)
-        logits = h[:, -1] @ _out_table(params, cfg).T
+        logits = _all_rows(_logits(h[:, -1], params, cfg), b)
+        mesh = sharding.active_mesh()
+        if mesh is not None:
+            from repro_torch.models.lm_distributed import place_cache
+            cache = place_cache(cache, mesh, batch=b)
     return logits, cache
 
 
@@ -691,18 +846,28 @@ def decode_step(params: dict, cache: DecodeCache, token, pos: int,
     """One decoding step: ``token`` (B, 1) at position ``pos`` (a host int;
     a 0-d tensor is read back once) -> (logits (B, 1, V), the cache with
     the new K/V rows and Mamba windows and states written in place).  Runs
-    without autograd on ``device``."""
+    without autograd on ``device``; under a mesh it takes the placed cache
+    that :func:`prefill` returns, runs this rank's rows, gathers the logits
+    whole and writes each new row into the slices this rank owns."""
     dev = _entry_device(params, device)
     pos = int(pos)
     kv = (cache.shared_kv if cfg.family == "hybrid" else
           cache.kv[0] if _interleaved(cfg) else cache.kv)
-    rows = kv.k.shape[2] if kv is not None else pos + 1
+    rows = _seq_rows(kv.k) if kv is not None else pos + 1
     if not 0 <= pos < rows:
         raise ValueError(f"position {pos} is outside the cache's "
                          f"{rows} rows (pad_cache grows it)")
+    b = token.shape[0]
+    lo, hi = _serve_rows(b)
+    if hi - lo != b:
+        first = kv.k if kv is not None else cache.mamba.conv
+        if not _rows_split(first, 1):
+            raise ValueError("under a mesh decode_step takes the cache that "
+                             "prefill returns (lm_distributed.place_cache)")
+        token = token[lo:hi]
     with torch.no_grad():
-        h = params["embed"][token.to(dev)]
+        h = qz.gather_rows(vocab_table(params["embed"]), token.to(dev))
         h, cache = _run_stack(params, h, cfg, opts, "decode", cache=cache,
                               pos=pos)
-        logits = h @ _out_table(params, cfg).T
+        logits = _all_rows(_logits(h, params, cfg), b)
     return logits, cache

@@ -28,6 +28,16 @@ step's exchanges:
 * :meth:`LMShardingPlan.gather_state` / :meth:`LMShardingPlan.place_state`,
   the whole state for a checkpoint in the unsharded layout, and a whole
   state sliced onto this mesh (any mesh: restores are elastic).
+
+The decode cache's counterparts: :func:`place_cache` lays a whole
+``lm.DecodeCache`` onto a mesh (each leaf this rank's slice under
+``lm.cache_defs``' specs fitted to the leaf, a ``params.Shard`` where the
+mesh splits it), :func:`gather_cache` makes it whole again, and
+:func:`abstract_cache` builds the slices directly, empty (``meta`` for the
+dry run).  ``lm.prefill`` under a mesh returns its cache placed, and
+``lm.decode_step`` reads and writes such a cache (``models/lm.py``); each
+rank serves its own batch rows, so only the dimensions other than the
+rows are gathered where attention reads them.
 """
 from __future__ import annotations
 
@@ -38,8 +48,11 @@ import torch
 from repro_torch.distributed import sharding as shd
 from repro_torch.models import lm
 from repro_torch.models.config import ArchConfig
+from repro_torch.models.layers import KVCache
 from repro_torch.models.params import (
+    ParamDef,
     Shard,
+    fit_spec,
     fitted_defs,
     gather_leaf,
     local_shape,
@@ -60,16 +73,22 @@ SYNC_CHUNK_BYTES = 256 << 20
 class LMShardingPlan:
     """The sharded layout of an LM of ``cfg`` trained by ``optimizer`` on
     ``mesh`` (see the module docstring).  ``specs`` is the fitted spec tree
-    of the parameters, ``state_specs`` that of the optimizer state."""
+    of the parameters, ``state_specs`` that of the optimizer state (None
+    without an optimizer: a serving plan, whose :meth:`view` is all it
+    needs)."""
 
-    def __init__(self, cfg: ArchConfig, mesh: shd.Mesh, optimizer: Optimizer):
+    def __init__(self, cfg: ArchConfig, mesh: shd.Mesh,
+                 optimizer: Optional[Optimizer] = None):
         self.cfg, self.mesh, self.optimizer = cfg, mesh, optimizer
         with shd.use_mesh(mesh):          # fsdpify reads the data shards
             defs = lm.model_defs(cfg)
         self.specs = partition_specs(defs, mesh.shape)
-        self._state_defs = fitted_defs(
-            optimizer.state_defs(fitted_defs(defs, mesh.shape)), mesh.shape)
-        self.state_specs = partition_specs(self._state_defs)
+        self._state_defs = self.state_specs = None
+        if optimizer is not None:
+            self._state_defs = fitted_defs(
+                optimizer.state_defs(fitted_defs(defs, mesh.shape)),
+                mesh.shape)
+            self.state_specs = partition_specs(self._state_defs)
         self.data = mesh.group(shd.DATA_AXES)
         self._spec_of = dict(named_leaves(_SpecTree(self.specs,
                                                     self.state_specs)))
@@ -187,6 +206,80 @@ class LMShardingPlan:
                 leaf = slice_leaf(leaf, spec, self.mesh)
             return leaf.to(device) if device is not None else leaf
         return map_leaves(state, part)
+
+
+def _map_cache(fn, cache):
+    """``cache`` (an ``lm.DecodeCache``) with every leaf ``x`` replaced by
+    ``fn(x, its logical spec, whether it holds K/V rows)`` (``lm.KV_SPEC``
+    for K/V rows, ``lm.CONV_SPEC`` / ``lm.STATE_SPEC`` for a Mamba
+    cache)."""
+    def rebuild(node, items):
+        return type(node)(*items) if hasattr(node, "_fields") else tuple(items)
+
+    def kv(node):
+        if node is None:
+            return None
+        if isinstance(node[0], KVCache):          # an interleaved-MoE pair
+            return tuple(kv(m) for m in node)
+        return rebuild(node, [fn(x, lm.KV_SPEC, True) for x in node])
+
+    mamba = cache.mamba
+    if mamba is not None:
+        mamba = type(mamba)(fn(mamba.conv, lm.CONV_SPEC, False),
+                            fn(mamba.state, lm.STATE_SPEC, False))
+    return lm.DecodeCache(kv(cache.kv), mamba, kv(cache.shared_kv),
+                          kv(cache.cross_kv))
+
+
+def place_cache(cache, mesh: shd.Mesh, batch: Optional[int] = None):
+    """This rank's slices of a whole decode cache: each leaf under its
+    logical spec fitted to its shape and ``mesh`` (``lm.cache_defs``'
+    layout), a ``Shard`` where the mesh splits it, the whole tensor where
+    it does not.  With ``batch`` (the whole batch's rows), the cache holds
+    only this rank's rows of it (``lm.prefill`` under a mesh): where the
+    fitted spec splits the rows (dim 1) they are kept as they are."""
+    def part(x, spec, _):
+        if isinstance(x, Shard):
+            return x
+        shape = tuple(x.shape)
+        if batch is not None:
+            shape = shape[:1] + (batch,) + shape[2:]
+        fitted = fit_spec(shape, spec, mesh.shape)
+        if not sharded_dims(fitted, mesh):
+            return x
+        cut = fitted
+        if x.shape[1] != shape[1]:                  # the rows are ours
+            cut = shd.P(fitted[0], None, *fitted[2:])
+        return Shard(slice_leaf(x, cut, mesh), fitted)
+    return _map_cache(part, cache)
+
+
+def gather_cache(cache, mesh: shd.Mesh):
+    """The whole decode cache from every rank's slices (every rank of the
+    mesh must call)."""
+    return _map_cache(lambda x, *_: gather_leaf(x.local, x.spec, mesh)
+                      if isinstance(x, Shard) else x, cache)
+
+
+def cache_specs(cache):
+    """The spec tree of a placed decode cache: each ``Shard``'s fitted
+    spec, and an empty spec for a leaf kept whole."""
+    return _map_cache(lambda x, *_: x.spec if isinstance(x, Shard)
+                      else shd.P(), cache)
+
+
+def abstract_cache(cfg: ArchConfig, batch: int, seq: int, mesh: shd.Mesh,
+                   dtype=torch.bfloat16):
+    """This rank's slices of an empty decode cache on ``meta`` for
+    ``batch`` sequences of ``seq`` positions, built at their local shapes
+    (nothing whole): K/V rows in ``dtype`` (``TrainOptions.cache_dtype``),
+    a Mamba cache in fp32, as ``lm.prefill`` keeps them."""
+    def make(x: ParamDef, spec, kv: bool):
+        fitted = fit_spec(x.shape, spec, mesh.shape)
+        t = torch.empty(local_shape(x.shape, fitted, mesh),
+                        dtype=dtype if kv else torch.float32, device="meta")
+        return Shard(t, fitted) if sharded_dims(fitted, mesh) else t
+    return _map_cache(make, lm.cache_defs(cfg, batch, seq))
 
 
 class _SpecTree(NamedTuple):

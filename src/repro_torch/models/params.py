@@ -46,6 +46,11 @@ class ParamDef:
     spec: PartitionSpec = PartitionSpec()
 
 
+def is_def(x: Any) -> bool:
+    """True when ``x`` is a :class:`ParamDef` leaf."""
+    return isinstance(x, ParamDef)
+
+
 def map_defs(fn: Callable[[ParamDef], Any], tree):
     """Rebuild a tree of dicts, NamedTuples, tuples and lists with each
     ParamDef replaced by ``fn(def)`` (None stays None)."""
@@ -120,6 +125,44 @@ def materialize(key: int, tree, dtype=torch.float32, device="cpu", *,
 
     return tree_from_items([(path, make(i, d, path)) for i, (path, d)
                             in enumerate(tree_items(tree))])
+
+
+def abstract(tree, dtype=torch.float32, device="meta", *, mesh=None):
+    """Stand-ins of a ParamDef tree (dicts and NamedTuples): an empty tensor
+    of each leaf's shape and ``dtype`` on ``device`` (``meta`` by default:
+    nothing is allocated).  With ``mesh``, each leaf is this rank's slice
+    under the def's own spec (pass :func:`fitted_defs`), built at its
+    :func:`local_shape` directly, never whole."""
+    def make(d: ParamDef):
+        shape = d.shape if mesh is None else local_shape(d.shape, d.spec, mesh)
+        return torch.empty(shape, dtype=dtype, device=device)
+    return map_defs(make, tree)
+
+
+def def_leaves(tree) -> list:
+    """The ParamDef leaves of a tree of dicts and NamedTuples, in
+    :func:`map_defs` order."""
+    out: list = []
+    map_defs(out.append, tree)
+    return out
+
+
+def bytes_per_device(tree, mesh_shape: dict, bytes_per_elem: int = 2) -> int:
+    """Parameter bytes landing on one device under each leaf's spec as it
+    stands (fit it first for the fitted layout): the reference's arithmetic,
+    floor division by the product of the spec's present axis sizes
+    included."""
+    total = 0
+    for leaf in def_leaves(tree):
+        n = math.prod(leaf.shape)
+        shards = 1
+        for ax in leaf.spec:
+            if ax is None:
+                continue
+            for a in (ax if isinstance(ax, tuple) else (ax,)):
+                shards *= mesh_shape.get(a, 1)
+        total += n * bytes_per_elem // max(shards, 1)
+    return total
 
 
 def count_params(tree) -> int:

@@ -45,6 +45,14 @@ class ShapeCounter:
                 f"({sorted(self._shapes)}), budget {self.budget}: a steady "
                 "state must keep one shape")
 
+    def check(self) -> None:
+        """Raise :class:`RetraceError` when more distinct shapes than the
+        budget were seen."""
+        if self.budget is not None and len(self._shapes) > self.budget:
+            raise RetraceError(
+                f"'{self.label}' was called with {len(self._shapes)} shapes, "
+                f"budget {self.budget}: a steady state must keep one shape")
+
     def reset(self) -> None:
         """Forget every shape seen."""
         self._shapes = set()

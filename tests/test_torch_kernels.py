@@ -212,8 +212,17 @@ def test_wrappers_reject_bad_shapes_and_devices():
     u, p, negs = _t(*_cf(4, 3, 8))
     with pytest.raises(ValueError):
         ccl_similarity.ccl_stats(u, p[:3], negs)
+    # meta tensors (the dry run) get the kernel's outputs, empty on meta,
+    # and run neither the kernel nor the plain version
+    ccl_similarity.STATS_LAUNCHES.reset()
+    out = ccl_similarity.ccl_stats(u.to("meta"), p.to("meta"), negs.to("meta"))
+    assert [tuple(x.shape) for x in out] == [(4, 1)] * 3 + [(4, 3)] * 2
+    assert all(x.device.type == "meta" for x in out)
+    assert [ccl_similarity.STATS_LAUNCHES.count(d)
+            for d in ("meta", "cpu", "cuda")] == [1, 0, 0]
     with pytest.raises(ValueError):
-        ccl_similarity.ccl_stats(u.to("meta"), p.to("meta"), negs.to("meta"))
+        ccl_similarity.ccl_stats(u.to("meta"), p[:3].to("meta"),
+                                 negs.to("meta"))
     with pytest.raises(ValueError):
         embedding_update.gather_fma_rows_(torch.zeros(5, 8), torch.arange(3),
                                           torch.arange(3), torch.zeros(3, 4),
@@ -443,9 +452,12 @@ def test_shared_and_flash_wrappers_reject_bad_shapes():
         ccl_similarity.ccl_stats_shared(u, p[:3], negs)
     with pytest.raises(ValueError):
         ccl_similarity.ccl_stats_shared(u, p, negs[:, :4])
+    out = ccl_similarity.ccl_stats_shared(u.to("meta"), p.to("meta"),
+                                          negs.to("meta"))
+    assert [tuple(x.shape) for x in out] == [(4, 1)] * 3 + [(1, 3), (4, 3)]
     with pytest.raises(ValueError):
         ccl_similarity.ccl_stats_shared(u.to("meta"), p.to("meta"),
-                                        negs.to("meta"))
+                                        negs[:, :4].to("meta"))
     q, k, v = _t(*_qkv(1, 3, 2, 8, 4))
     with pytest.raises(ValueError):                # Hq not a multiple of Hkv
         flash_attention.flash_attention(q, k, v)
