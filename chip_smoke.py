@@ -49,21 +49,20 @@ Phases, one line each (a few print more):
      state, the launch counts of the main path, and steps/s;
   6. determinism: two runs of 2 steps (with a tile refresh) from one state,
      compared bit for bit;
-  7. a torch.profiler window of the main path: kernel launches and device
-     busy time per step, ``segment_reduce``'s device time per step, and the
-     kernels that take the most device time;
+  7. (none: where a main-path step's device time goes, and its launches,
+     are the benchmark's traced stretch, ``heatbench/``, read through the
+     port's own spans);
   8. ``AMAZON`` with int8 tables on the kernel backend at batch 1,024 in
      windows of 16, on the CLI's dataset shape (4,096 users): finite losses,
      the launches per step (gather-dequant 3, stats 1, backward 1,
      gather-FMA 0), an int8 payload after training, a fixed-set loss that
-     falls, steps/s, peak device memory, and a profiled window; then the
+     falls, steps/s and peak device memory; then the
      gather-dequant kernel against its plain version, bit for bit, and
      timed, on the trained tables: at the ids of the run's first batch (the
      user, positive and history gathers, after one line with the run's
      launches of the kernel, which cover all three gathers; the kernels
      line reports the history gather) and at ids across each whole
-     table, last rows included
-     (the profiled window reports ``segment_reduce`` as phase 7 does);
+     table, last rows included;
   9. an int8 restart: ``MF_100M_PALLAS`` with int8 tables, a 16-item
      history and a tile refresh every 8 steps, 32 steps uninterrupted and
      again with a checkpoint every 8 steps and a failure injected at step
@@ -75,7 +74,7 @@ Phases, one line each (a few print more):
      shared-stats and one shared-backward launch per step and no other
      kernel, the loss on that batch (fixed negatives) falling from the
      initial state, steps/s and tokens/s over one more steady window, peak
-     device memory, and a profiled window;
+     device memory;
  11. the shared-layout CCL kernels against their plain versions on the head's
      own inputs from the trained model (a fixed batch: T = 8 x 1,023 rows,
      K = 960, n = 64), with the kernel loss's autograd Function against the
@@ -364,36 +363,6 @@ def time_ms(fn, flush, reps: int = 30) -> float:
     return statistics.median(times)
 
 
-def profile_window(executor, state, start: int, length: int,
-                   t_unprofiled: float, label: str = "7 profile",
-                   top_n: int = 6, watch: str = "") -> str:
-    """Profile one more window of a main path: kernel launches and device
-    busy time per step, against the unprofiled window's wall time, and the
-    device time per step of the kernels whose names hold ``watch``."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        executor.run(state, start, length)
-        torch.cuda.synchronize()
-    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    busy_us = sum(e.self_device_time_total for e in kern) / length
-    if not kern or busy_us <= 0:
-        return f"[{label}] the profiler saw no device time: not measured"
-    launches = sum(e.count for e in kern) / length
-    step_us = 1e6 * t_unprofiled / length
-    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:top_n]
-    names = ", ".join(f"{e.key[:48]} {e.self_device_time_total / length:.1f} us"
-                      for e in top)
-    watched = ""
-    if watch:
-        us = sum(e.self_device_time_total for e in kern if watch in e.key) / length
-        watched = f"; {watch} {us:.1f} us"
-    return (f"[{label}] per step: {launches:.0f} kernel launches, device "
-            f"busy {busy_us:.1f} us of {step_us:.1f} us unprofiled "
-            f"({100 * busy_us / step_us:.1f}%){watched}; top: {names}")
-
-
 def eval_loss(state, cfg, dds, batch: int = B) -> float:
     """The model's CCL loss on a fixed set: 4 batches of (user, train
     positive) pairs drawn with seed 1000 (with their history when the model
@@ -625,9 +594,6 @@ def lm_phases(dev, card: str, flush, counters) -> list:
           f"steps/s including init, {rate:.3f} steps/s = {rate * LM_B * LM_S:.0f} "
           f"tokens/s over one more {LM_WINDOW}-step window; peak device memory "
           f"{peak_gb:.2f} GB | {card}", flush=True)
-    print(profile_window(executor, state, LM_STEPS + LM_WINDOW, 4,
-                         t_steady * 4 / LM_WINDOW, label="10 profile", top_n=12),
-          flush=True)
     del executor, body, step_fn
 
     # ---- 11: the LM kernels against their plain versions -------------------
@@ -2021,7 +1987,7 @@ def sharding_phase(dev, card: str, ds0, counters) -> float:
               f"exchanges {exch:.3f} ms ({100 * exch / wall:.1f}%); device busy "
               f"{busy_s} a step in a profiled window after it, so the rest {rest}; "
               f"{'not measured' if launches_p is None else f'{launches_p:.0f}'} "
-              f"device launches a step (unsharded: phase 7) | {card}", flush=True)
+              f"device launches a step (unsharded: heatbench's step.launches) | {card}", flush=True)
         n_losses, same_losses, same_state, logs, secs = r0["crash"]
         print(f"[18d crash] the 18b run with checkpoints every {SHARD_CKPT} steps "
               f"and a failure at step {SHARD_FAIL} on both ranks ({logs}; "
@@ -3729,9 +3695,6 @@ def main() -> int:
     print("[6 determinism] 2 steps (tile refreshed) twice from one state: "
           "losses, both tables and the tile identical bit for bit", flush=True)
 
-    # ---- 7: where a steady step's time goes --------------------------------
-    print(profile_window(executor, state, STEPS + WINDOW, WINDOW, t_steady,
-                         watch="segment_reduce"), flush=True)
     # phase 14 evaluates these tables; they wait on the host meanwhile
     mf_trained = mf.MFParams(state.params.user_table.cpu(), state.params.item_table.cpu(),
                              None)
@@ -3787,8 +3750,6 @@ def main() -> int:
           f"steps/s including init, {WINDOW / t_steady:.1f} steps/s over one "
           f"more {WINDOW}-step window; peak device memory {peak_gb:.2f} GB; "
           f"dataset {t_data8:.1f} s | {card}", flush=True)
-    print(profile_window(executor, state, INT8_STEPS + WINDOW, WINDOW, t_steady,
-                         label="8 profile", watch="segment_reduce"), flush=True)
 
     # The gather-dequant on the trained tables themselves, at the ids of the
     # run's first batch (user, positive, history: the step's three calls),

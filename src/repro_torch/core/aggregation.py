@@ -101,6 +101,11 @@ def accumulate(state: AccumulatorState,
                             count=state.count + 1)
 
 
+def flush_due(state: AccumulatorState, flush_every: int) -> bool:
+    """Whether :func:`maybe_flush` flushes ``state``."""
+    return state.count >= flush_every
+
+
 def maybe_flush(state: AccumulatorState, params: AggregatorParams, lr: float,
                 flush_every: int, *, group=None):
     """Every ``flush_every`` steps: ``W -= lr * grad_sum / count`` (Listing
@@ -114,7 +119,7 @@ def maybe_flush(state: AccumulatorState, params: AggregatorParams, lr: float,
     *summed*, where the reference takes a ``pmean`` of per-shard means: the
     sharded step scales each rank's loss by its share of the batch, so a
     rank's gradients are shares of the global mean already."""
-    if state.count < flush_every:
+    if not flush_due(state, flush_every):
         return params, state
     grad_sum = state.grad_sum
     if group is not None:

@@ -37,6 +37,7 @@ from repro_torch.core import samplers
 from repro_torch.core.engine import SampleContext, StepEngine, resolve_engine
 from repro_torch.core.metrics import stable_topk
 from repro_torch.optim import quantization as qz
+from repro_torch.train import spans
 
 _M64 = (1 << 64) - 1
 
@@ -243,7 +244,12 @@ def heat_train_step(state: MFState, batch: Batch, rng: int, cfg: MFConfig,
     ``plan`` (a ``core/mf_distributed.py::MFShardingPlan``) runs the step
     sharded: ``state`` is this rank's part, ``batch`` the *global* batch
     (the same on every rank), and the loss the global batch's
-    (:func:`~repro_torch.core.mf_distributed.sharded_train_step`)."""
+    (:func:`~repro_torch.core.mf_distributed.sharded_train_step`).
+
+    Unsharded, each phase is a span of ``train/spans.py`` (``gather``,
+    ``sample``, ``loss``, ``update.user``, ``update.item``, ``tile.write``,
+    ``tile.refresh`` on the steps that redraw, ``agg.accumulate``,
+    ``agg.flush`` on the steps that flush)."""
     if engine is None:
         engine = resolve_engine(cfg)
     if plan is not None:
@@ -254,25 +260,30 @@ def heat_train_step(state: MFState, batch: Batch, rng: int, cfg: MFConfig,
     quantized = isinstance(params.user_table, qz.QuantizedTable)
     in_kernel = quantized and engine.backend == "pallas"
 
-    user_e = qz.gather_rows(params.user_table, batch.user_ids,
-                            use_kernel=in_kernel)
-    pos_e = qz.gather_rows(params.item_table, batch.pos_ids,
-                           use_kernel=in_kernel)
+    with spans.span("gather"):
+        user_e = qz.gather_rows(params.user_table, batch.user_ids,
+                                use_kernel=in_kernel)
+    with spans.span("gather"):
+        pos_e = qz.gather_rows(params.item_table, batch.pos_ids,
+                               use_kernel=in_kernel)
     n_shape = (batch.user_ids.shape[0], cfg.num_negatives)
-    drawn = engine.sampler.sample(
-        SampleContext(table=params.item_table, tile=tile,
-                      pos_ids=batch.pos_ids, weights=item_weights),
-        generator(fold_in(rng, NEG_SALT), dev), n_shape)
+    with spans.span("sample"):
+        drawn = engine.sampler.sample(
+            SampleContext(table=params.item_table, tile=tile,
+                          pos_ids=batch.pos_ids, weights=item_weights),
+            generator(fold_in(rng, NEG_SALT), dev), n_shape)
     neg_ids, neg_e, neg_local = drawn.ids, drawn.embs, drawn.local_idx
     tile = drawn.state.tile
 
     aggregator = params.aggregator
     rows = [user_e, pos_e, neg_e]
     if aggregator is not None:
-        rows.append(qz.gather_rows(params.item_table, batch.hist_ids,
-                                   use_kernel=in_kernel))
-    loss, grads, agg_grads = loss_and_grads(rows, aggregator, batch.hist_mask,
-                                            cfg, engine)
+        with spans.span("gather"):
+            rows.append(qz.gather_rows(params.item_table, batch.hist_ids,
+                                       use_kernel=in_kernel))
+    with spans.span("loss"):
+        loss, grads, agg_grads = loss_and_grads(rows, aggregator,
+                                                batch.hist_mask, cfg, engine)
     g_user, g_pos, g_neg = grads[:3]
 
     # §3.1: only touched rows are written.  All of the step's item gradient
@@ -282,57 +293,67 @@ def heat_train_step(state: MFState, batch: Batch, rng: int, cfg: MFConfig,
     # the table takes N1 unique rows instead of B*n duplicate-heavy ones and
     # the tile write-through is a dense add; a tile larger than the sample
     # keeps per-sample rows.
-    if quantized:
-        new_user = qz.apply_updates(
-            params.user_table, batch.user_ids, g_user, cfg.lr,
-            generator(fold_in(rng, ROUND_USER_SALT), dev))
-    else:
-        new_user = engine.row_update(params.user_table, batch.user_ids,
-                                     g_user, cfg.lr)
-    neg_reduced = None
-    item_groups = [(batch.pos_ids, g_pos)]
-    if neg_local is not None and tile.tile_ids.shape[0] <= neg_local.numel():
-        neg_reduced = samplers.reduce_local_grads(neg_local, g_neg,
-                                                  tile.tile_ids.shape[0])
-        item_groups.append((tile.tile_ids, neg_reduced))
-    else:
-        item_groups.append((neg_ids, g_neg))
-    if aggregator is not None:
-        item_groups.append((batch.hist_ids, grads[3]))
-    if quantized:
-        new_item = qz.apply_updates_many(
-            params.item_table, item_groups, cfg.lr,
-            generator(fold_in(rng, ROUND_ITEM_SALT), dev))
-    else:
-        new_item = engine.row_update_many(params.item_table, item_groups,
-                                          cfg.lr)
+    with spans.span("update.user"):
+        if quantized:
+            new_user = qz.apply_updates(
+                params.user_table, batch.user_ids, g_user, cfg.lr,
+                generator(fold_in(rng, ROUND_USER_SALT), dev))
+        else:
+            new_user = engine.row_update(params.user_table, batch.user_ids,
+                                         g_user, cfg.lr)
+    with spans.span("update.item"):
+        neg_reduced = None
+        item_groups = [(batch.pos_ids, g_pos)]
+        if (neg_local is not None
+                and tile.tile_ids.shape[0] <= neg_local.numel()):
+            neg_reduced = samplers.reduce_local_grads(neg_local, g_neg,
+                                                      tile.tile_ids.shape[0])
+            item_groups.append((tile.tile_ids, neg_reduced))
+        else:
+            item_groups.append((neg_ids, g_neg))
+        if aggregator is not None:
+            item_groups.append((batch.hist_ids, grads[3]))
+        if quantized:
+            new_item = qz.apply_updates_many(
+                params.item_table, item_groups, cfg.lr,
+                generator(fold_in(rng, ROUND_ITEM_SALT), dev))
+        else:
+            new_item = engine.row_update_many(params.item_table, item_groups,
+                                              cfg.lr)
 
     # Tile coherence: write the same updates through to the resident copy
     # (exact fp32 updates, also over an int8 table: the tile drifts from the
     # requantized rows by at most their rounding until it is refreshed),
     # then refresh on schedule (§4.2).
     if tile is not None:
-        global_groups = [(batch.pos_ids, g_pos)]
-        if neg_reduced is not None:
-            tile = samplers.tile_apply_reduced(tile, neg_reduced, cfg.lr)
-        elif neg_local is not None:
-            tile = samplers.tile_apply_grads(tile, neg_local, g_neg, cfg.lr)
-        else:
-            global_groups.append((neg_ids, g_neg))
-        if aggregator is not None:
-            global_groups.append((batch.hist_ids, grads[3]))
-        tile = samplers.tile_apply_global_grads_many(tile, global_groups,
-                                                     cfg.lr)
-        tile = samplers.tile_refresh(tile,
-                                     generator(fold_in(rng, TILE_SALT), dev),
-                                     new_item, cfg.refresh_interval)
+        with spans.span("tile.write"):
+            global_groups = [(batch.pos_ids, g_pos)]
+            if neg_reduced is not None:
+                tile = samplers.tile_apply_reduced(tile, neg_reduced, cfg.lr)
+            elif neg_local is not None:
+                tile = samplers.tile_apply_grads(tile, neg_local, g_neg,
+                                                 cfg.lr)
+            else:
+                global_groups.append((neg_ids, g_neg))
+            if aggregator is not None:
+                global_groups.append((batch.hist_ids, grads[3]))
+            tile = samplers.tile_apply_global_grads_many(tile, global_groups,
+                                                         cfg.lr)
+        with spans.span("tile.refresh", when=samplers.refresh_due(
+                tile, cfg.refresh_interval)):
+            tile = samplers.tile_refresh(
+                tile, generator(fold_in(rng, TILE_SALT), dev), new_item,
+                cfg.refresh_interval)
 
     # Aggregator: local accumulation, deferred flush (§4.5 / Listing 1).
     accum = state.accum
     if aggregator is not None:
-        accum = agg.accumulate(accum, agg_grads)
-        aggregator, accum = agg.maybe_flush(accum, aggregator, cfg.lr,
-                                            cfg.flush_every)
+        with spans.span("agg.accumulate"):
+            accum = agg.accumulate(accum, agg_grads)
+        with spans.span("agg.flush",
+                        when=agg.flush_due(accum, cfg.flush_every)):
+            aggregator, accum = agg.maybe_flush(accum, aggregator, cfg.lr,
+                                                cfg.flush_every)
 
     new_state = MFState(MFParams(new_user, new_item, aggregator), tile, accum,
                         state.step + 1)
@@ -348,13 +369,16 @@ def make_scan_body(cfg: MFConfig, batch_fn, seed: int, *,
     (state, seed, start).  ``item_weights`` (for example
     ``DeviceCFDataset.item_weights``) feeds the ``popularity`` sampler;
     ``plan`` runs each step sharded (``batch_fn`` then draws the global
-    batch)."""
+    batch).  Unsharded, the batch draw is a ``batch`` span
+    (``train/spans.py``)."""
     if engine is None:
         engine = resolve_engine(cfg)
 
     def body(state: MFState, step: int):
-        return heat_train_step(state, batch_fn(step), fold_in(seed, step),
-                               cfg, engine=engine, item_weights=item_weights,
+        with spans.span("batch", when=plan is None):
+            batch = batch_fn(step)
+        return heat_train_step(state, batch, fold_in(seed, step), cfg,
+                               engine=engine, item_weights=item_weights,
                                plan=plan)
 
     return body

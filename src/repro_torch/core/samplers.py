@@ -61,12 +61,17 @@ def id_tile_init(gen: torch.Generator, num_items: int,
     return TileState(sample_unique(gen, num_items, tile_size), None, 0)
 
 
+def refresh_due(state: TileState, refresh_interval: int) -> bool:
+    """Whether :func:`tile_refresh` redraws the tile at this step."""
+    return state.step >= refresh_interval - 1
+
+
 def tile_refresh(state: TileState, gen: torch.Generator, item_table,
                  refresh_interval: int) -> TileState:
     """Redraw the tile from the live table every ``refresh_interval`` steps,
     else count the step.  An id-only tile redraws its ids only (the table
     gives just the size of the sampling space)."""
-    if state.step >= refresh_interval - 1:
+    if refresh_due(state, refresh_interval):
         ids = sample_unique(gen, qz.num_rows(item_table),
                             state.tile_ids.shape[0])
         emb = (None if state.tile_emb is None

@@ -35,7 +35,6 @@ in that user's served top-k (``launch/stream.py`` prints it).
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
@@ -48,7 +47,7 @@ from repro_torch.resilience.guard import (DivergenceError, DivergenceGuard,
                                           GuardConfig)
 from repro_torch.stream.sources import InteractionStream
 from repro_torch.train import checkpoint as ckpt
-from repro_torch.train import trainer
+from repro_torch.train import spans, trainer
 
 
 class StreamCarry(NamedTuple):
@@ -268,44 +267,55 @@ class StreamingTrainer:
         """ingest → train → guard → refresh → (checkpoint); False when the
         stream is exhausted.  Crash injection (``fail_at_event``) fires
         *before* the micro-batch holding that offset is applied, so the
-        failure always lands between rounds — where checkpoints are."""
+        failure always lands between rounds — where checkpoints are.
+
+        The round is a ``round`` span holding ``ingest``, ``train`` (the
+        window and any poison injection), ``guard`` and ``refresh`` spans
+        (``train/spans.py``); ``last_round_stats`` reads their stamps
+        (``train_s`` runs from the window's start to the guard's end)."""
         scfg = self.scfg
-        t0 = time.perf_counter()
-        batch = self.stream.next_batch(scfg.micro_batch)
-        if batch is None or len(batch) == 0:
-            return False
-        if (scfg.fail_at_event is not None and self.restarts == 0
-                and batch.start <= scfg.fail_at_event < batch.start + len(batch)):
-            raise trainer.SimulatedFailure(
-                f"injected failure at event {scfg.fail_at_event} "
-                f"(round {self.rounds})")
-        self.ingest_events(batch.user_ids, batch.item_ids)
-        t1 = time.perf_counter()
-        window = self.train_round()
-        if (scfg.poison_at_round is not None and self.rollbacks == 0
-                and self.rounds + 1 == scfg.poison_at_round):
-            # chaos/test injection: corrupt one trained row, as a numerical
-            # blowup inside the window would (fires once, like fail_at_event)
-            self.state.params.item_table[0, 0] = float("nan")
-        if self.guard is not None:
-            reason = self.guard.check(self.state.params, window)
-            if reason is not None:
-                # raise BEFORE refresh and BEFORE the checkpoint below:
-                # poisoned state must never reach serving or disk
-                raise DivergenceError(
-                    f"divergence guard tripped after round "
-                    f"{self.rounds + 1} (step {self.step}): {reason}")
-        t2 = time.perf_counter()
-        if self.recommender is not None:
-            self.recommender.refresh_from(self.state)
-        t3 = time.perf_counter()
-        self.rounds += 1
-        if scfg.ckpt_dir and scfg.ckpt_every \
-                and self.rounds % scfg.ckpt_every == 0:
-            self._save()
+        with spans.span("round"):
+            with spans.Timed("ingest") as ingest:
+                batch = self.stream.next_batch(scfg.micro_batch)
+                if batch is None or len(batch) == 0:
+                    return False
+                if (scfg.fail_at_event is not None and self.restarts == 0
+                        and batch.start <= scfg.fail_at_event
+                        < batch.start + len(batch)):
+                    raise trainer.SimulatedFailure(
+                        f"injected failure at event {scfg.fail_at_event} "
+                        f"(round {self.rounds})")
+                self.ingest_events(batch.user_ids, batch.item_ids)
+            with spans.Timed("train") as train:
+                window = self.train_round()
+                if (scfg.poison_at_round is not None and self.rollbacks == 0
+                        and self.rounds + 1 == scfg.poison_at_round):
+                    # chaos/test injection: corrupt one trained row, as a
+                    # numerical blowup inside the window would (fires once,
+                    # like fail_at_event)
+                    self.state.params.item_table[0, 0] = float("nan")
+            with spans.Timed("guard") as guard:
+                if self.guard is not None:
+                    reason = self.guard.check(self.state.params, window)
+                    if reason is not None:
+                        # raise BEFORE refresh and BEFORE the checkpoint
+                        # below: poisoned state must never reach serving or
+                        # disk
+                        raise DivergenceError(
+                            f"divergence guard tripped after round "
+                            f"{self.rounds + 1} (step {self.step}): {reason}")
+            with spans.Timed("refresh") as refresh:
+                if self.recommender is not None:
+                    self.recommender.refresh_from(self.state)
+            self.rounds += 1
+            if scfg.ckpt_dir and scfg.ckpt_every \
+                    and self.rounds % scfg.ckpt_every == 0:
+                self._save()
         self.last_round_stats = {
             "round": self.rounds, "events": len(batch),
-            "ingest_s": t1 - t0, "train_s": t2 - t1, "refresh_s": t3 - t2,
+            "ingest_s": ingest.seconds,
+            "train_s": (guard.end_ns - train.start_ns) * 1e-9,
+            "refresh_s": refresh.seconds,
             "loss": float(window.mean()),
         }
         return True

@@ -43,6 +43,7 @@ from repro_torch.models.config import ArchConfig
 from repro_torch.models.params import tree_from_items, tree_items, tree_map
 from repro_torch.optim.optimizers import Optimizer, get_optimizer
 from repro_torch.train import checkpoint as ckpt
+from repro_torch.train import spans
 from repro_torch.train.shapes import ShapeCounter
 
 #: restarts ``train_mf`` makes after injected failures before it re-raises.
@@ -62,7 +63,9 @@ class EpochExecutor:
     any carry the body threads (an ``MFState``, or the streaming service's
     ``(state, data)`` pair).  ``trace_counter`` counts the distinct window
     lengths dispatched — the reference compiles one program per length and
-    counts its traces — and raises past ``trace_budget``.  ``reduce``
+    counts its traces — and raises past ``trace_budget``.  Each run is a
+    ``window`` span and each body call a ``step`` span (``train/spans.py``).
+    ``reduce``
     (optional) maps the window's stacked losses before they are returned:
     a sharded LM run sums its ranks' parts there, once a window."""
 
@@ -79,12 +82,15 @@ class EpochExecutor:
         """Run steps ``[start, start + length)``; returns
         ``(new_state, (length,) device loss tensor)``."""
         self.trace_counter.add(length)
-        losses = []
-        for step in range(start, start + length):
-            state, loss = self.body(state, step)
-            losses.append(loss)
-        window = torch.stack(losses)
-        return state, window if self.reduce is None else self.reduce(window)
+        with spans.span("window", anchor=True):
+            losses = []
+            for step in range(start, start + length):
+                with spans.span("step", step):
+                    state, loss = self.body(state, step)
+                losses.append(loss)
+            window = torch.stack(losses)
+            return state, (window if self.reduce is None
+                           else self.reduce(window))
 
 
 def _window_length(step: int, stop: int, k: int, ckpt_every: int,
