@@ -42,11 +42,20 @@ Phases, one line each (a few print more):
      the kernel's share of its bound (bound over kernel time); the
      gather-dequant kernel on a synthetic 400,000-row int8 table at 1,024 and
      at 16,384 ids, which must agree with its plain version bit for bit;
+     the segment-sum kernel (#8) at the int8 item update's duplicate
+     pre-reduce at batch 16,384 (1,655,808 positions, one run of 1,589,248)
+     and the fp32 slot reduction at batch 65,536 (4,194,304 positions into
+     1,024 slots), which must agree with its plain version on the CPU bit
+     for bit, give the same bits on two calls and count the pieces past
+     each run's first as the host counts them, timed beside its plain
+     version on the card and the library path it replaced (the sorted copy
+     ``values[order]`` and ``segment_reduce``);
   4. the loss through the kernel autograd Function against the plain
      ``ccl_loss_fused``: loss and the three gradients;
   5. ``train_mf`` for 64 steps at batch 1,024 in windows of 16: finite
      losses, a loss on a fixed set of pairs that falls from the initial
-     state, the launch counts of the main path, and steps/s;
+     state, the launch counts of the main path (the segment sum twice a
+     step: the slot reduction and the tile write-through), and steps/s;
   6. determinism: two runs of 2 steps (with a tile refresh) from one state,
      compared bit for bit;
   7. (none: where a main-path step's device time goes, and its launches,
@@ -55,8 +64,10 @@ Phases, one line each (a few print more):
   8. ``AMAZON`` with int8 tables on the kernel backend at batch 1,024 in
      windows of 16, on the CLI's dataset shape (4,096 users): finite losses,
      the launches per step (gather-dequant 3, stats 1, backward 1,
-     gather-FMA 0), an int8 payload after training, a fixed-set loss that
-     falls, steps/s and peak device memory; then the
+     gather-FMA 0, segment sum 4: the user and item updates' duplicate
+     pre-reduces, the slot reduction, the tile write-through), an int8
+     payload after training, a fixed-set loss that falls, steps/s and peak
+     device memory; then the
      gather-dequant kernel against its plain version, bit for bit, and
      timed, on the trained tables: at the ids of the run's first batch (the
      user, positive and history gathers, after one line with the run's
@@ -71,8 +82,9 @@ Phases, one line each (a few print more):
      lr 1e-3, ``remat="full"``, the HEAT head (n=64 shared negatives from the
      2,048-id vocab tile) on ``backend="pallas"``: 32 steps through
      ``train_lm`` on one fixed batch, in windows of 8: finite losses, one
-     shared-stats and one shared-backward launch per step and no other
-     kernel, the loss on that batch (fixed negatives) falling from the
+     shared-stats and one shared-backward launch per step, three of the
+     segment sum (#8, the row gathers' backwards) and no other kernel, the
+     loss on that batch (fixed negatives) falling from the
      initial state, steps/s and tokens/s over one more steady window, peak
      device memory;
  11. the shared-layout CCL kernels against their plain versions on the head's
@@ -114,12 +126,14 @@ Phases, one line each (a few print more):
      pallas+pallas+popularity, pallas+pallas+in_batch and the config's own
      HEAT engine pallas+pallas+tile: finite losses, the launches of the
      stats, backward and gather-FMA kernels (once, once and twice a step on
-     the pallas engines, never on the others), steps/s over two more windows
+     the pallas engines, never on the others) and of the segment sum (the
+     tile write-through, the dense update's two, the tile sampler's slot
+     reduction), steps/s over two more windows
      and the device time per step over a profiled one; for popularity and
      in_batch two 2-step runs from one state, bit for bit; then ``AMAZON``
      int8 with the popularity sampler (an fp64 CDF over the 9.35M items'
      counts) for 16 steps on phase 8's dataset: finite losses, three
-     gather-dequant launches a step and two 2-step runs bit for bit; and
+     gather-dequant and three segment-sum launches a step and two 2-step runs bit for bit; and
      Algorithm 1's (``tune_tiling``) plans on the H100 constants beside the
      configs' own (N1, N2);
  16. serving at full width on phase 5's trained ``MF_100M_PALLAS``:
@@ -144,17 +158,18 @@ Phases, one line each (a few print more):
      live exact top-10 server refreshed every round and checkpoints every 4
      rounds: ms a round for ingest, train and refresh, steps/s, a
      checkpoint's ms, the loss, events/s, freshness (printed, not asserted),
-     peak memory; asserted: finite losses, no guard trip, 32/32/64 launches
-     of the stats, backward and gather-FMA kernels in every round, one
+     peak memory; asserted: finite losses, no guard trip, 32/32/64/64
+     launches of the stats, backward, gather-FMA and segment-sum kernels in
+     every round, one
      window length, one event shape, one call shape; (b) the same run with a
      failure at event 43,000 (round 11): one restart, and the tables, tile,
      ring, counters and losses equal to (a)'s bit for bit, then two rounds
      with no server attached (their train ms against (a)'s) and one more
      round profiled (device time and launches against (a)'s round wall);
      (c) the popularity sampler fed the live counts for 8 rounds: the same
-     launches, items first ingested in a round drawn as negatives in the
-     next, two 2-round runs bit for bit; (d) ``launch/serve.py``'s two
-     warm-started streaming rounds on a clone of phase 5's trained state
+     launches but 32 of the segment sum (no slot reduction), items first
+     ingested in a round drawn as negatives in the next, two 2-round runs
+     bit for bit; (d) ``launch/serve.py``'s two warm-started streaming rounds on a clone of phase 5's trained state
      with a cold ring, refreshing phase 16's tile server with its call
      shapes unchanged; (e) ``run_chaos(seed=0, rounds=10)`` on the card with
      no problem; (f) ``launch.stream.main`` at 400,000 x 400,000 x 128 on the
@@ -196,7 +211,8 @@ Phases, one line each (a few print more):
      experts top-6, vocab 163,840, 2.95B parameters): ``train_lm`` for 8
      AdamW steps at lr 1e-3 on one fixed batch of 4 x 512 with the HEAT head
      on ``pallas`` (finite losses, the fixed-batch loss falling, kernels #3
-     and #4 launched once a step and nothing else, peak memory), #3 and #4
+     and #4 launched once a step, #8 seven times (three row gathers and one
+     a layer for the experts' outputs) and nothing else, peak memory), #3 and #4
      against their plain versions on the trained model's head inputs (T =
      2,044, K = 2,048, n = 128: errors, µs, bounds), then the serving run on
      the trained weights; and the phase's seconds;
@@ -208,7 +224,8 @@ Phases, one line each (a few print more):
      block and MLP) for 4 steps at 2 x 512; (c) qwen2-vl-2b (28 M-RoPE
      layers) for 8 steps at 4 x 512 with 256 patch rows a sequence from
      ``lm_batch(extras=)``: finite losses, the fixed-batch loss falling,
-     kernels #3 and #4 launched once a step and nothing else, peak memory;
+     kernels #3 and #4 launched once a step, #8 three times and nothing
+     else, peak memory;
      #3 and #4 against their plain versions on each trained head's inputs
      (errors, µs, bounds, ``torch.matmul`` for ``un``; these entries join
      the kernels line); then phase 19's serving run on the trained weights
@@ -222,7 +239,8 @@ Phases, one line each (a few print more):
      the HEAT head on ``pallas``) for 8 steps on one fixed batch of 8 x 448
      tokens (Whisper's decoder context) with 8 x 1,500 frames from
      ``lm_batch(extras=)``: finite losses, the fixed-batch loss falling,
-     #3 and #4 launched once a step and nothing else, peak memory and its
+     #3 and #4 launched once a step, #8 three times and nothing else, peak
+     memory and its
      parts; #3 and #4 against their plain versions on the trained head's
      inputs (T = 3,576, K = 1,024, n = 64; these entries join the kernels
      line); then phase 19's serving run on the trained weights: 8 prompts
@@ -298,6 +316,10 @@ DEQUANT_IDS = (1024, 16384)     # the sizes of AMAZON's user and history gathers
 RTOL, ATOL = 1e-5, 1e-6      # |kernel - plain| <= ATOL + RTOL * |plain|
 LM_B, LM_S, LM_STEPS, LM_WINDOW, LM_LR = 8, 1024, 32, 8, 1e-3
 LM_RESTART_LAYERS, LM_RESTART_STEPS = 4, 8
+#: the LM step's segment sums: the backwards of its three row gathers
+#: (``tiling.GatherRows``) from the vocab tables; an MoE model adds one a
+#: layer (the gather of its experts' outputs).
+LM_SEGMENT_SUMS = 3
 #: phase 14: top-20 evaluation in chunks of 65,536 items (a chunk that
 #: divides neither 400,000 nor 9,350,000), checked against the dense scores
 #: on the first EVAL_CHECK_USERS users (16 on the 9.35M-item catalog).
@@ -426,6 +448,66 @@ def dequant_summary(kd: dict) -> str:
             f"({kd['bound_by']}; {bound_share(kd)}), library {kd['library_ms']:.4f} ms "
             f"(q.index_select alone: the int8 gather without the dequant, a "
             f"partial yardstick)")
+
+
+def segment_sum_cases(dev, gen) -> dict:
+    """Kernel #8's two main-path shapes at K=128: name -> (sorted ids, the
+    sort's permutation, values, num_segments).  ``dedup``: the int8 item
+    update's duplicate pre-reduce at batch 16,384 (``_dedup``'s run index
+    of 1,655,808 positions into as many segments; the history padding's
+    item 0 holds a run of 1,589,248, the rest come in runs of about 1.25);
+    ``slots``: the fp32 slot reduction at batch 65,536 (4,194,304 negative
+    gradients into the 1,024 tile slots)."""
+    import torch
+    m, run = 1_655_808, 1_589_248
+    rest = torch.cumsum((torch.rand(m - run, generator=gen, device=dev) < 0.8).long(), 0)
+    dedup = torch.cat([torch.zeros(run, dtype=torch.int64, device=dev), rest + 1])
+    slots = torch.randint(0, 1024, (4_194_304,), generator=gen, device=dev)
+    slot_order = torch.argsort(slots, stable=True)
+    cases = {"dedup": (dedup, torch.randperm(m, generator=gen, device=dev), m),
+             "slots": (slots[slot_order], slot_order, 1024)}
+    return {name: (sidx, order, torch.randn(sidx.shape[0], K, generator=gen, device=dev), n)
+            for name, (sidx, order, n) in cases.items()}
+
+
+def segment_sum_entry(shape: str, sidx, order, values, n: int, flush) -> dict:
+    """Kernel #8 through ``tiling.sorted_segment_sum`` against its plain
+    version on the CPU (must agree bit for bit), two calls compared bit for
+    bit, its count of the pieces past each run's first against the host's,
+    and its kernel, plain (on the card) and library times: the library path
+    is the sorted copy ``values[order]`` and ``segment_reduce``, which the
+    kernel replaced.  Bound: each value row, sorted id and permutation entry
+    read once, each output row written once, one add a value."""
+    import torch
+    from repro_torch.core import tiling
+    from repro_torch.kernels import segment_sum as ss
+    engaged = ss.engaged_pieces(values.device)
+    before = int(engaged.item())
+    got = tiling.sorted_segment_sum(sidx, values, n, order=order)
+    torch.cuda.synchronize()
+    pieces = int(engaged.item()) - before
+    lengths = torch.bincount(sidx[sidx < n], minlength=n)
+    want_pieces = int(((lengths + ss.PIECE - 1) // ss.PIECE - 1).clamp_min(0).sum())
+    assert pieces == want_pieces, f"segment_sum {shape}: {pieces} pieces, host {want_pieces}"
+    want = ss.sorted_segment_sum_plain(sidx.cpu(), values.cpu(), n, order.cpu())
+    err = (got.cpu() - want).abs().max().item()
+    assert torch.equal(got.cpu(), want), f"segment_sum {shape} differs: max abs err {err}"
+    assert torch.equal(got, tiling.sorted_segment_sum(sidx, values, n, order=order)), \
+        f"segment_sum {shape}: two calls differ"
+    m, k = values.shape
+    b_ms, b_by = bound(4 * m * k + 16 * m + 4 * n * k, m * k)
+    slow = 5 if int(lengths.max()) > 100_000 else 30      # the library's long run
+    return dict(
+        name="segment_sum", shape=shape, route="cuda",
+        source="src/repro_torch/csrc/segment_sum.cu",
+        replaces="torch.segment_reduce and values[order] (src/repro_torch/core/tiling.py)",
+        max_abs_err=err,
+        ms=time_ms(lambda: tiling.sorted_segment_sum(sidx, values, n, order=order), flush),
+        plain_ms=time_ms(lambda: ss.sorted_segment_sum_plain(sidx, values, n, order),
+                         flush, slow),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=time_ms(lambda: ss.sequential_sum(sidx, values[order], n), flush, slow),
+        positions=m, longest_run=int(lengths.max()), pieces=pieces)
 
 
 def lm_eval_loss(params, cfg, opts, tile, dev, b: int = LM_B, s: int = LM_S,
@@ -563,7 +645,9 @@ def lm_phases(dev, card: str, flush, counters) -> list:
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     assert len(losses) == LM_STEPS and all(math.isfinite(x) for x in losses), losses
     want = {c.name: 0 for c in counters}
-    want.update(ccl_stats_shared=LM_STEPS, ccl_bwd_shared=LM_STEPS)
+    # the segment sum: three GatherRows backwards a step (LM_SEGMENT_SUMS)
+    want.update(ccl_stats_shared=LM_STEPS, ccl_bwd_shared=LM_STEPS,
+                segment_sum=LM_SEGMENT_SUMS * LM_STEPS)
     assert launches == want, launches
     eval_after = lm_eval_loss(state.params, cfg, opts, tile0, dev)
     assert eval_after < eval_before, f"LM loss did not fall: {eval_before} -> {eval_after}"
@@ -949,6 +1033,10 @@ def repeat_check(cfg, dds, item_weights, steps: int = 2) -> str:
 ENGINES = (("simplex_bmm", "dense", "uniform"), ("fused", "scatter_add", "uniform"),
            ("mse_dot", "scatter_add", "uniform"), ("pallas", "pallas", "popularity"),
            ("pallas", "pallas", "in_batch"), ("pallas", "pallas", "tile"))
+#: phase 15: the segment sums a step of each engine's update, by update and
+#: sampler: the tile write-through on every engine, the dense update's one a
+#: table, the tile sampler's slot reduction.
+ENGINE_SEGMENT_SUMS = {"dense": 2, "scatter_add": 0, "pallas": 0}
 ENGINE_STEPS, ENGINE_WINDOW, AMAZON_POP_STEPS = 32, 16, 16
 #: phase 15: Algorithm 1's total iterations M for the plans it prints (about
 #: 10^9 samples at batch 1,024).
@@ -965,7 +1053,7 @@ def engines_phase(dev, card: str, ds, ds8, counters) -> None:
     from repro_torch.train import trainer
     cfg0 = MF_100M_PALLAS
     dds = pipeline.device_cf_dataset(ds, dev)
-    kernel_names = ("ccl_stats", "ccl_bwd", "gather_fma")
+    kernel_names = ("ccl_stats", "ccl_bwd", "gather_fma", "segment_sum")
     results = {}
     for backend, update, sampler in ENGINES:
         cfg = dataclasses.replace(cfg0, backend=backend, update_impl=update,
@@ -985,6 +1073,8 @@ def engines_phase(dev, card: str, ds, ds8, counters) -> None:
         if on_kernels:
             want.update(ccl_stats=ENGINE_STEPS, ccl_bwd=ENGINE_STEPS,
                         gather_fma=2 * ENGINE_STEPS)
+        want["segment_sum"] = ENGINE_STEPS * (1 + ENGINE_SEGMENT_SUMS[update]
+                                              + (sampler == "tile"))
         assert launches == want, (name, launches)
         weights = dds.item_weights if sampler == "popularity" else None
         executor = trainer.EpochExecutor(mf.make_scan_body(
@@ -1040,8 +1130,9 @@ def engines_phase(dev, card: str, ds, ds8, counters) -> None:
     launches = {c.name: c.count() for c in counters}
     assert len(losses) == AMAZON_POP_STEPS and all(math.isfinite(x) for x in losses), losses
     want = {c.name: 0 for c in counters}
+    # segment sums: the two tables' duplicate pre-reduces, the tile write-through
     want.update(ccl_stats=AMAZON_POP_STEPS, ccl_bwd=AMAZON_POP_STEPS,
-                gather_dequant=3 * AMAZON_POP_STEPS)
+                gather_dequant=3 * AMAZON_POP_STEPS, segment_sum=3 * AMAZON_POP_STEPS)
     assert launches == want, launches
     positive = int((dds8.item_weights > 0).sum())
     del state
@@ -1415,9 +1506,13 @@ def streaming_phase(dev, card: str, mf_trained, tile_server, counters) -> None:
             c.reset()
         return got
 
+    # segment sums: the slot reduction (the tile sampler's alone) and the
+    # tile write-through
     per_round = {"ccl_stats": STREAM_STEPS, "ccl_bwd": STREAM_STEPS,
                  "gather_fma": 2 * STREAM_STEPS, "gather_dequant": 0,
-                 "ccl_stats_shared": 0, "ccl_bwd_shared": 0, "flash_attention": 0}
+                 "ccl_stats_shared": 0, "ccl_bwd_shared": 0, "flash_attention": 0,
+                 "segment_sum": 2 * STREAM_STEPS}
+    per_round_pop = dict(per_round, segment_sum=STREAM_STEPS)
 
     # ---- 17a: a cold-start streaming run with a live server ---------------
     pipeline.APPLY_EVENTS_SHAPES.reset()
@@ -1490,7 +1585,8 @@ def streaming_phase(dev, card: str, mf_trained, tile_server, counters) -> None:
           f"{n_events} events in {wall:.2f} s = {n_events / wall:,.0f} events/s end to end; "
           f"freshness: "
           f"{fresh}; launches a round {per_round['ccl_stats']}/{per_round['ccl_bwd']}/"
-          f"{per_round['gather_fma']} (ccl_stats/ccl_bwd/gather_fma) in every round; window "
+          f"{per_round['gather_fma']}/{per_round['segment_sum']} "
+          f"(ccl_stats/ccl_bwd/gather_fma/segment_sum) in every round; window "
           f"lengths 1, event shapes 1, serving call shapes 1; peak device memory "
           f"{peak_gb:.2f} GB | {card}", flush=True)
 
@@ -1562,7 +1658,7 @@ def streaming_phase(dev, card: str, mf_trained, tile_server, counters) -> None:
         seen = trainer.data.item_weights > 0
         rec.drawn.zero_()
         assert trainer.run(rounds=1) == 1
-        assert take_launches() == per_round, r
+        assert take_launches() == per_round_pop, r
         first_seen = (trainer.data.item_weights > 0) & ~seen
         if r:
             drawn_new.append(int((rec.drawn & prev_new).sum()))
@@ -1588,7 +1684,8 @@ def streaming_phase(dev, card: str, mf_trained, tile_server, counters) -> None:
     torch.cuda.empty_cache()
     print(f"[17c popularity] {cfg_pop.backend}+{cfg_pop.update_impl}+popularity fed the "
           f"live ring counts, {STREAM_POP_ROUNDS} rounds as 17a: launches a round "
-          f"{per_round['ccl_stats']}/{per_round['ccl_bwd']}/{per_round['gather_fma']} in "
+          f"{per_round_pop['ccl_stats']}/{per_round_pop['ccl_bwd']}/"
+          f"{per_round_pop['gather_fma']}/{per_round_pop['segment_sum']} in "
           f"every round, {STREAM_POP_ROUNDS * STREAM_STEPS / t_pop:.0f} steps/s over the run "
           f"(ingest and refresh of the CDF included); {n_weighted} items with a count at "
           f"the end; items first ingested in round r drawn as negatives in round r+1: "
@@ -1726,8 +1823,10 @@ def tree_diff(tree: dict, ref: dict):
 
 def shard_launches(steps: int) -> dict:
     """The launches of ``steps`` MF_100M_PALLAS steps: one stats, one
-    backward and two gather-FMA (the user shard, then the item groups)."""
-    return {"ccl_stats": steps, "ccl_bwd": steps, "gather_fma": 2 * steps}
+    backward, two gather-FMA (the user shard, then the item groups) and two
+    segment sums (the slot reduction, the tile write-through)."""
+    return {"ccl_stats": steps, "ccl_bwd": steps, "gather_fma": 2 * steps,
+            "segment_sum": 2 * steps}
 
 
 def exchange_split(executor, state, start: int, length: int, mesh, prof_on: bool):
@@ -1790,13 +1889,13 @@ def shard_rank(cfg, ds, ref_dir: str, ref_losses: list, work: str) -> dict:
     from repro_torch.core import mf
     from repro_torch.core import mf_distributed as mfd
     from repro_torch.data import pipeline
-    from repro_torch.kernels import ccl_similarity, embedding_update
+    from repro_torch.kernels import ccl_similarity, embedding_update, segment_sum
     from repro_torch.launch.mesh import make_data_mesh, make_host_mesh, rank_device
     from repro_torch.train import trainer
     dev = rank_device("cuda")
     rank = dist.get_rank()
     counters = (ccl_similarity.STATS_LAUNCHES, ccl_similarity.BWD_LAUNCHES,
-                embedding_update.GATHER_FMA_LAUNCHES)
+                embedding_update.GATHER_FMA_LAUNCHES, segment_sum.SEGMENT_SUM_LAUNCHES)
     out: dict = {"device": str(dev)}
     logs: list = []
 
@@ -2357,7 +2456,8 @@ def lm_serving_phase(dev, card: str, flush, counters) -> None:
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     assert len(losses) == MOE_STEPS and all(math.isfinite(x) for x in losses), losses
     want = {c.name: 0 for c in counters}
-    want.update(ccl_stats_shared=MOE_STEPS, ccl_bwd_shared=MOE_STEPS)
+    want.update(ccl_stats_shared=MOE_STEPS, ccl_bwd_shared=MOE_STEPS,
+                segment_sum=(LM_SEGMENT_SUMS + MOE_LAYERS) * MOE_STEPS)
     assert launches == want, launches
     eval_after = lm_eval_loss(state.params, cfg, opts, tile0, dev, MOE_B, MOE_S)
     assert eval_after < eval_before, f"MoE loss did not fall: {eval_before} -> {eval_after}"
@@ -2409,8 +2509,8 @@ def lm_train_run(dev, card: str, flush, counters, label: str, arch: str, steps: 
     ``remat="full"``, one fixed batch of b x s tokens with a VLM's patch
     rows or an audio model's frames from ``lm_batch(extras=)``: finite
     losses, the fixed-batch loss falling, kernels #3 and #4 launched once a
-    step and nothing else, peak memory and its parts), then #3 and #4
-    against their plain versions on the trained head's inputs.  With
+    step, #8 three times and nothing else, peak memory and its parts), then
+    #3 and #4 against their plain versions on the trained head's inputs.  With
     ``condition`` the run starts from ``train_lm``'s init with the
     attention conditioned (:func:`condition_attention_`) and runs
     ``train_lm``'s window body on it (``trainer.lm_window_body`` under an
@@ -2465,7 +2565,8 @@ def lm_train_run(dev, card: str, flush, counters, label: str, arch: str, steps: 
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     assert len(losses) == steps and all(math.isfinite(x) for x in losses), losses
     want = {c.name: 0 for c in counters}
-    want.update(ccl_stats_shared=steps, ccl_bwd_shared=steps)
+    want.update(ccl_stats_shared=steps, ccl_bwd_shared=steps,
+                segment_sum=LM_SEGMENT_SUMS * steps)
     assert launches == want, launches
     eval_after = lm_eval_loss(state.params, cfg, opts, tile0, dev, b, s, extras)
     assert eval_after < eval_before, \
@@ -3418,7 +3519,7 @@ def sanitize_phase(dev, card: str, ds, counters) -> float:
     losses_plain = window.cpu().tolist()
     plain_ms = 1e3 * (time.perf_counter() - t0) / WINDOW
     assert launches == {"ccl_stats": 3 * WINDOW, "ccl_bwd": 3 * WINDOW,
-                        "gather_fma": 6 * WINDOW}, launches
+                        "gather_fma": 6 * WINDOW, "segment_sum": 6 * WINDOW}, launches
     assert executor.trace_counter.count == 1 and all(math.isfinite(x) for x in losses)
     assert all(math.isfinite(x) for x in losses_plain)
     rep = donation_report(executor.run, state, 5 * WINDOW, WINDOW, min_bytes=1 << 12)
@@ -3482,6 +3583,7 @@ def main() -> int:
         embedding_update,
         flash_attention,
         ops,
+        segment_sum,
     )
     from repro_torch.optim import quantization as qz
     from repro_torch.train import checkpoint as ckpt
@@ -3602,6 +3704,20 @@ def main() -> int:
               f"{dequant_summary(kd)} | {card}", flush=True)
     del q8, scale8
 
+    for shape, (sidx, order, values, n) in segment_sum_cases(dev, gen).items():
+        kd = segment_sum_entry(shape, sidx, order, values, n, flush)
+        print(f"[3 segment_sum] {shape}: {kd['positions']} positions into {n} segments, "
+              f"longest run {kd['longest_run']}, {kd['pieces']} pieces past a run's first "
+              f"(as the host counts them); bit for bit with the plain version on the CPU "
+              f"and on two calls; {kd['ms']:.4f} ms kernel, {kd['plain_ms']:.4f} ms plain, "
+              f"bound {kd['bound_ms']:.4f} ms ({kd['bound_by']}; {bound_share(kd)}), "
+              f"library {kd['library_ms']:.4f} ms (values[order] and segment_reduce) "
+              f"| {card}", flush=True)
+        del kd["positions"], kd["longest_run"], kd["pieces"]
+        kernels.append(kd)
+        del sidx, order, values
+    torch.cuda.empty_cache()
+
     # ---- 4: the kernel loss against the plain fused loss -------------------
     def loss_and_grads(fn):
         leaves = [t.clone().requires_grad_() for t in (u, p, negs)]
@@ -3628,7 +3744,8 @@ def main() -> int:
                 embedding_update.GATHER_DEQUANT_LAUNCHES,
                 ccl_similarity.SHARED_STATS_LAUNCHES,
                 ccl_similarity.SHARED_BWD_LAUNCHES,
-                flash_attention.FLASH_LAUNCHES)
+                flash_attention.FLASH_LAUNCHES,
+                segment_sum.SEGMENT_SUM_LAUNCHES)
     lm_idle = {"ccl_stats_shared": 0, "ccl_bwd_shared": 0, "flash_attention": 0}
     for c in counters:
         c.reset()
@@ -3647,10 +3764,11 @@ def main() -> int:
     eval_after = eval_loss(state, MF_100M_PALLAS, dds)
     assert eval_after < eval_before, f"loss did not fall: {eval_before} -> {eval_after}"
     # One stats and one backward launch per step; one gather-FMA launch per
-    # table per step (the user update, then the item groups' fused update).
+    # table per step (the user update, then the item groups' fused update);
+    # two segment sums per step (the slot reduction, the tile write-through).
     assert launches == {"ccl_stats": STEPS, "ccl_bwd": STEPS,
                         "gather_fma": 2 * STEPS, "gather_dequant": 0,
-                        **lm_idle}, launches
+                        "segment_sum": 2 * STEPS, **lm_idle}, launches
     for kd in kernels:
         kd["launches"] = launches[kd["name"]]
     body = mf.make_scan_body(MF_100M_PALLAS, lambda s: pipeline.cf_batch_device(
@@ -3725,7 +3843,10 @@ def main() -> int:
     assert len(losses) == INT8_STEPS and all(math.isfinite(x) for x in losses), losses
     assert launches8 == {"ccl_stats": INT8_STEPS, "ccl_bwd": INT8_STEPS,
                          "gather_fma": 0, "gather_dequant": 3 * INT8_STEPS,
-                         **lm_idle}, launches8
+                         "segment_sum": 4 * INT8_STEPS, **lm_idle}, launches8
+    for kd in kernels:
+        if kd.get("shape") == "dedup":          # the int8 update's segment sums
+            kd["launches"] = launches8["segment_sum"]
     payload = {str(t.q.dtype) for t in (state.params.user_table,
                                         state.params.item_table)}
     assert payload == {"torch.int8"}, payload

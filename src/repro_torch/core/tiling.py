@@ -3,9 +3,10 @@ deterministic segment sum it and the slot reduction share.
 
 CUDA's ``index_add_``, ``scatter_add_`` and ``index_put_(accumulate=True)``
 add duplicate rows with atomics in a run-to-run order.  :func:`segment_sum`
-instead stably sorts the targets and sums each run sequentially
-(``segment_reduce``), so the same inputs give the same bits on every run and
-every device.  :func:`gather_rows` is a row gather whose backward is that
+instead stably sorts the targets and sums each run in a fixed order
+(``kernels/segment_sum.py``: in order, a long run in fixed pieces whose sums
+are then added in order), so the same inputs give the same bits on every run
+and every device.  :func:`gather_rows` is a row gather whose backward is that
 segment sum, for tables that take gradients (the LM's embedding and output
 tables).
 
@@ -21,6 +22,8 @@ import dataclasses
 import math
 
 import torch
+
+from repro_torch.kernels import segment_sum as _segment_sum
 
 #: the L2's read rate in bytes/s, the last line of ``tools/probe_kernels.py
 #: --parts l2`` on an NVIDIA H100 80GB HBM3 at 700.00 W: the median over
@@ -50,23 +53,22 @@ def segment_sum(idx, values, num_segments: int):
     order of ``i``: (num_segments, K) from idx (M,) in ``[0, num_segments]``
     and values (M, K).  Entries with ``idx == num_segments`` are dropped:
     they sort last and are not summed at all.  Sort-based, with no atomics
-    and no host sync."""
+    and no host sync; the values are read through the sort's permutation,
+    not copied in sorted order."""
     order = torch.argsort(idx, stable=True)
-    return sorted_segment_sum(idx[order], values[order], num_segments)
+    return sorted_segment_sum(idx[order].to(torch.int64), values,
+                              num_segments, order=order)
 
 
-def sorted_segment_sum(sidx, values, num_segments: int):
-    """:func:`segment_sum` of inputs already sorted by ``sidx`` (stably):
-    each run is summed sequentially, in the given order.  ``segment_reduce``
-    gets the lengths of the ``num_segments`` kept segments only, so the
-    sorted tail with ``sidx == num_segments`` (the dropped entries) is never
-    summed: their lengths add up to fewer rows than ``values`` has, which
-    ``unsafe=True`` accepts."""
-    bounds = torch.searchsorted(
-        sidx, torch.arange(num_segments + 1, dtype=sidx.dtype,
-                           device=sidx.device))
-    return torch.segment_reduce(values, "sum", lengths=bounds.diff(),
-                                axis=0, unsafe=True)
+def sorted_segment_sum(sidx, values, num_segments: int, order=None):
+    """:func:`segment_sum` of ids already sorted by ``sidx`` (stably), with
+    ``values[order]`` the values in that order (``order`` None: ``values``
+    is already sorted).  Each run is summed in the sorted order, a run
+    longer than ``kernels/segment_sum.py``'s ``PIECE`` in pieces of that
+    many summed in order and then added in order.  The sorted tail with
+    ``sidx == num_segments`` (the dropped entries) is never read."""
+    return _segment_sum.sorted_segment_sum(sidx.contiguous(), values.contiguous(),
+                                           num_segments, order)
 
 
 def tile_write_through(tile_ids, tile_emb, ids, grads, lr: float):

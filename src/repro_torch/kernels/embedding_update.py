@@ -29,7 +29,7 @@ import ctypes
 import torch
 
 from repro_torch.core import tiling
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, segment_sum
 
 GATHER_FMA_LAUNCHES = _build.LaunchCounter("gather_fma")
 GATHER_DEQUANT_LAUNCHES = _build.LaunchCounter("gather_dequant")
@@ -51,14 +51,15 @@ def reset_launch_count() -> None:
 
 def gather_fma_rows_plain_(table, sids, order, grads, lr):
     """Plain version of :func:`gather_fma_rows_`.  The segment sum runs in
-    sorted order (``segment_reduce`` sums each run sequentially), and every
-    lane of a run writes the same new row, so the scatter is idempotent and
-    needs no atomics."""
+    sorted order, each run in one piece as the kernel sums it
+    (``segment_reduce`` sums each run sequentially), and every lane of a run
+    writes the same new row, so the scatter is idempotent and needs no
+    atomics."""
     b = sids.shape[0]
     if b == 0:
         return table
     seg = tiling.run_index(sids)
-    reduced = tiling.sorted_segment_sum(seg, grads[order], b)
+    reduced = segment_sum.sequential_sum(seg, grads[order], b)
     table.index_put_((sids,), table[sids] - lr * reduced[seg])
     return table
 

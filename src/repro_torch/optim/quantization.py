@@ -255,7 +255,7 @@ def _dedup(ids: torch.Tensor, grads: torch.Tensor):
     order = torch.argsort(ids, stable=True)
     sids = ids[order]
     seg = tiling.run_index(sids)
-    reduced = tiling.sorted_segment_sum(seg, grads[order], ids.shape[0])
+    reduced = tiling.sorted_segment_sum(seg, grads, ids.shape[0], order=order)
     # Every lane of a run writes the same id, so the scatter needs no atomics.
     uids = torch.zeros_like(sids).index_put_((seg,), sids)
     return sids, seg, uids, reduced

@@ -296,7 +296,7 @@ def test_build_names_libraries_by_source_hash(tmp_path, monkeypatch):
     is rebuilt instead of a stale library being loaded."""
     assert _build.sources() == ["ccl_bwd", "ccl_bwd_shared", "ccl_stats",
                                 "ccl_stats_shared", "flash_attention",
-                                "gather_dequant", "gather_fma"]
+                                "gather_dequant", "gather_fma", "segment_sum"]
     monkeypatch.setattr(_build, "CSRC", tmp_path)
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     (tmp_path / "k.cu").write_text("// v1\n")

@@ -75,19 +75,27 @@ otherwise.
   streaming stores (``gather_dequant_rows.cu``), and warp tiles with 16-byte
   pieces (``gather_dequant_tiles.cu``); with ``--earlier``, the earlier
   checkout's kernel joins the alternation.
-- ``segment_sum``: the int8 ``AMAZON`` step (chip_smoke.py phase 8's
-  configuration and dataset) profiled over 16-step windows with
-  ``core/tiling.py::sorted_segment_sum`` as it is and with its earlier form,
-  which also summed the dropped tile misses as one more segment (kept here
-  as ``sorted_segment_sum_before``), in the order current, earlier,
-  earlier, current: ``segment_reduce``'s device time per step and the
-  step's busy time.
+- ``segment_sum``: ``csrc/segment_sum.cu`` (kernel #8) at the three shapes
+  of the benchmark's segment sums, on sorted ids read through a random
+  permutation: the int8 item update's duplicate pre-reduce at batch 16,384
+  (1,655,808 positions, one run of 1,589,248, num_segments = positions) and
+  at batch 1,024 (104,448 positions, one run of 99,328), and the slot
+  reduction at batch 65,536 (4,194,304 positions into 1,024 slots), K = 128.
+  Each shape: the kernel, its variants (``SEGMENT_VARIANTS``), the kernel
+  at the other pieces of ``SEGMENT_PIECES`` and on values already in sorted
+  order, each checked bit for bit against the plain version on the CPU at
+  its piece and with its device time split by operation (torch.profiler, 5
+  calls), then the kernel as shipped,
+  its plain version and the library path it replaced
+  (``sorted_segment_sum_library``: the sorted copy and ``segment_reduce``),
+  each the median of 30 timings.
 - ``launches``: the fp32 ``MF_100M_PALLAS`` step (chip_smoke.py phase 5's
   configuration and dataset) profiled over three 16-step windows, with
-  ``sorted_segment_sum`` as it is, in its earlier form, and as it is again:
-  device events per step (also as chip_smoke.py phase 7 counts them), and
-  for each operator that launched any (with its parent operators) its
-  launches per step and their kernels' names.
+  ``sorted_segment_sum`` as it is, as the library path it replaced
+  (``sorted_segment_sum_library``), and as it is again: device events per
+  step (also as chip_smoke.py phase 7 counts them), and for each operator
+  that launched any (with its parent operators) its launches per step and
+  their kernels' names.
 - ``step_stats`` (needs ``--earlier``): the same step profiled over 16-step
   windows with the current and the earlier checkout's ``ccl_stats.cu``, in
   the order current, earlier, earlier, current: the step's device time and
@@ -274,16 +282,13 @@ def read_source(name: str) -> str:
         return f.read()
 
 
-def sorted_segment_sum_before(sidx, values, num_segments: int):
-    """``core/tiling.py::sorted_segment_sum`` before the dropped entries were
-    cut from its lengths: they were summed as segment ``num_segments`` and
-    sliced off."""
-    import torch
-    bounds = torch.searchsorted(
-        sidx, torch.arange(num_segments + 2, dtype=sidx.dtype, device=sidx.device))
-    sums = torch.segment_reduce(values, "sum", lengths=bounds.diff(), axis=0,
-                                unsafe=True)
-    return sums[:num_segments]
+def sorted_segment_sum_library(sidx, values, num_segments: int, order=None):
+    """``core/tiling.py::sorted_segment_sum`` as the library path that kernel
+    #8 replaced: the sorted copy ``values[order]``, then one
+    ``segment_reduce`` that sums each run in order."""
+    from repro_torch.kernels import segment_sum
+    return segment_sum.sequential_sum(sidx, values if order is None else values[order],
+                                      num_segments)
 
 
 class Timer:
@@ -697,50 +702,121 @@ def part_dequant(dev, timer: Timer, card: str, earlier: str | None) -> None:
         torch.cuda.empty_cache()
 
 
-def part_segment_sum(dev, card: str) -> None:
-    """The int8 AMAZON step's segment_reduce time with the current and the
-    earlier sorted_segment_sum."""
-    import dataclasses
+#: the pieces part ``segment_sum`` times the kernel at.
+SEGMENT_PIECES = (256, 512, 1024, 2048)
+#: variants of ``csrc/segment_sum.cu`` that part ``segment_sum`` also times
+#: at the shipped piece: label -> ((text of the source, its replacement), ...).
+_ROW_LOAD = "buf[t] = values[o * width + ccol];"
+SEGMENT_VARIANTS = {
+    "L2-only row loads (__ldcg)": ((_ROW_LOAD, "buf[t] = __ldcg(values + o * width + ccol);"),),
+    "streaming row loads (__ldcs)": ((_ROW_LOAD, "buf[t] = __ldcs(values + o * width + ccol);"),),
+    "1 warp a block": (("constexpr int WARPS = 4;", "constexpr int WARPS = 1;"),),
+    "8 warps a block": (("constexpr int WARPS = 4;", "constexpr int WARPS = 8;"),),
+}
 
+
+def segment_sum_shapes(dev):
+    """Part ``segment_sum``'s three shapes: name -> (sorted ids, permutation,
+    values, num_segments), built on the card."""
     import torch
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+
+    def dedup(m, run):
+        short = torch.cumsum((torch.rand(m - run, generator=gen, device=dev) < 0.8).long(),
+                             0) + 1
+        sidx = torch.cat([torch.zeros(run, dtype=torch.int64, device=dev), short])
+        return sidx, torch.randperm(m, generator=gen, device=dev), m
+
+    slots = torch.randint(0, 1024, (4_194_304,), generator=gen, device=dev)
+    order = torch.argsort(slots, stable=True)
+    shapes = {"dedup b16384 (1,655,808 positions, one run of 1,589,248)":
+              dedup(1_655_808, 1_589_248),
+              "dedup b1024 (104,448 positions, one run of 99,328)": dedup(104_448, 99_328),
+              "slot reduction b65536 (4,194,304 positions into 1,024)":
+              (slots[order], order, 1024)}
+    return {name: (sidx, order, torch.randn(sidx.shape[0], 128, generator=gen, device=dev), n)
+            for name, (sidx, order, n) in shapes.items()}
+
+
+def part_segment_sum(dev, timer: Timer, card: str) -> None:
+    """Kernel #8 at the benchmark's three segment-sum shapes: its pieces,
+    then the kernel, its plain version and the library path it replaced."""
+    import torch
+    from repro_torch.core import tiling
+    from repro_torch.kernels import _build, segment_sum
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.configs.heat_mf import AMAZON
-    from repro_torch.core import mf, tiling
-    from repro_torch.data import pipeline
-    from repro_torch.train import trainer
-    window = 16
-    cfg = dataclasses.replace(AMAZON, backend="pallas", update_impl="pallas",
-                              table_format="int8")
-    dds = pipeline.device_cf_dataset(pipeline.synth_cf_dataset(4096, cfg.num_items), dev)
-    state = mf.init_mf(0, cfg, device=dev)
-    body = mf.make_scan_body(cfg, lambda s: pipeline.cf_batch_device(
-        dds, 0, s, B, cfg.history_len), 0)
-    executor = trainer.EpochExecutor(body, window)
-    current = tiling.sorted_segment_sum
-    step = 0
-    state, _ = executor.run(state, step, window)          # warm-up
-    step += window
-    for label, fn in (("current", current), ("earlier", sorted_segment_sum_before),
-                      ("earlier", sorted_segment_sum_before), ("current", current)):
-        tiling.sorted_segment_sum = fn
-        try:
+    src = read_source("segment_sum")
+    variants = {}
+    for label, edits in SEGMENT_VARIANTS.items():
+        text = src
+        for old, new in edits:
+            if old not in text:
+                raise ValueError(f"segment_sum.cu no longer contains {old!r}")
+            text = text.replace(old, new)
+        variants[label] = (text, ())
+    entries = {"shipped": _build.bind("segment_sum", "segment_sum_sorted", segment_sum._ARGS)}
+    for label, lib in build(variants, "segment_sum").items():
+        entries[label] = bind(lib, "segment_sum_sorted", segment_sum._ARGS)
+    engaged = segment_sum.engaged_pieces(dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    shipped = segment_sum.PIECE
+    for name, (sidx, order, values, n) in segment_sum_shapes(dev).items():
+        m, k = values.shape
+        out = torch.empty(n, k, device=dev)
+        want = {}
+        runs = [(label, fn, shipped) for label, fn in entries.items()] + [
+            ("shipped", entries["shipped"], piece) for piece in SEGMENT_PIECES
+            if piece != shipped] + [("shipped, values already sorted (no order)",
+                                     entries["shipped"], shipped)]
+        for label, fn, piece in runs:
+            vals, perm = (values[order], None) if label.endswith("(no order)") else (values,
+                                                                                      order)
+            chunks = -(-m // piece)
+            scratch = torch.empty(chunks, k, device=dev)
+            meta = torch.empty(chunks, dtype=torch.int64, device=dev)
+            args = (sidx.data_ptr(), None if perm is None else perm.data_ptr(),
+                    vals.data_ptr(), out.data_ptr(),
+                    scratch.data_ptr(), meta.data_ptr(), engaged.data_ptr(), m, n, k, piece,
+                    stream)
+
+            def call(fn=fn, args=args):
+                _build.check(fn(*args), "segment_sum_sorted")
+
+            call()
+            if piece not in want:                       # the plain version, on the CPU
+                segment_sum.PIECE = piece
+                try:
+                    want[piece] = segment_sum.sorted_segment_sum_plain(
+                        sidx.cpu(), values.cpu(), n, order.cpu())
+                finally:
+                    segment_sum.PIECE = shipped
+            same = torch.equal(out.cpu(), want[piece])
+            took = timer.median(call)
             torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                state, _ = executor.run(state, step, window)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(5):
+                    call()
                 torch.cuda.synchronize()
-        finally:
-            tiling.sorted_segment_sum = current
-        step += window
-        kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-        busy = sum(e.self_device_time_total for e in kern) / window
-        seg = sum(e.self_device_time_total for e in kern if "segment_reduce" in e.key) / window
-        if busy <= 0:
-            print(f"segment_sum {label}: the profiler saw no device time: not measured")
-            continue
-        print(f"segment_sum {label}: AMAZON int8 step, segment_reduce {seg:.1f} us of "
-              f"{busy:.1f} us device time per step ({window}-step window) | {card}",
-              flush=True)
+            parts = "; ".join(f"{e.key[:40]} {e.self_device_time_total / 5:.1f}"
+                              for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+            print(f"segment_sum {name}: {label}, piece {piece}: {1e3 * took:.1f} us, "
+                  f"{'equal to' if same else 'DIFFERS from'} the plain version bit for bit "
+                  f"(device us a call: {parts or 'not measured'}) | {card}", flush=True)
+            del scratch, meta, vals, perm
+        calls = {"kernel": lambda: tiling.sorted_segment_sum(sidx, values, n, order=order),
+                 "plain (on the card its index_add_ adds with atomics)":
+                 lambda: segment_sum.sorted_segment_sum_plain(sidx, values, n, order),
+                 "library (sorted copy + segment_reduce)":
+                 lambda: sorted_segment_sum_library(sidx, values, n, order)}
+        reps = 5 if m > 1_000_000 else 30
+        print(f"segment_sum {name}, piece {shipped}: "
+              + "; ".join(f"{label} {1e3 * timer.median(c, reps=reps):.1f} us"
+                          for label, c in calls.items())
+              + f" (medians of {reps}) | {card}", flush=True)
+        del out, want
+        torch.cuda.empty_cache()
 
 
 MF_WINDOW = 16
@@ -812,7 +888,7 @@ def part_launches(dev, card: str) -> None:
     executor, state = mf_fp32_executor(dev)
     current = tiling.sorted_segment_sum
     for w, (label, form) in enumerate((("current", current),
-                                       ("earlier", sorted_segment_sum_before),
+                                       ("library", sorted_segment_sum_library),
                                        ("current", current)), start=1):
         tiling.sorted_segment_sum = form
         try:
@@ -995,9 +1071,7 @@ def main() -> int:
     if "dequant" in parts:
         part_dequant(dev, timer, card, args.earlier)
     if "segment_sum" in parts:
-        del timer
-        torch.cuda.empty_cache()
-        part_segment_sum(dev, card)
+        part_segment_sum(dev, timer, card)
     if "launches" in parts:
         part_launches(dev, card)
     if "step_stats" in parts:
