@@ -2,7 +2,8 @@
 
 One command runs one cell once (``python heatbench/run.py --workload <name>
 --seed <n> --seconds <s> --trace <0|1>``).  Cells, configurations, traffic
-mixes and per-layer metrics are found by name in ``BENCHMARK.json`` and in
+mixes, per-layer metrics and configuration kinds (``kinds/``: what a cell
+runs, checks and counts) are found by name in ``BENCHMARK.json`` and in
 files of their own under this folder, so a new one is a new file.  Nothing
 here imports ``jax`` or the JAX package: the port (``repro_torch``) is the
 system under test, and ``heatbench/reference/`` is the plain PyTorch model

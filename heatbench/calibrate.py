@@ -6,14 +6,16 @@
 
 For each ``--program`` seed: the program's first steps, as a benchmark run
 makes them in set-up, against the reference (the lower readings).  For each
-``--control`` seed: the reference computed with TF32 operands in place of
-the program, against the fp32 reference.  For each ``--fault NAME:SEEDS``
-seed: the reference with that fault planted (``half``, ``pos_twice``,
-``no_flush``: see :mod:`heatbench.reference.mf`) in the program's place,
-against the fp32 reference.  A state left unchanged reads 1 on
-``change_gap`` by construction and needs no run.  One JSON line per reading
-goes to standard output and to ``--out``; the benchmark's own runs never run
-this.
+``--control`` seed: the reference at the precision below the
+configuration's (the kind's ``CONTROL``; ``mf``: TF32 operands) in place of
+the program, against the reference.  For each ``--fault NAME:SEEDS`` seed:
+the reference with that fault planted in the program's place, against the
+reference; the cell's kind lists the faults it can plant (``FAULTS``;
+``mf``: ``half``, ``pos_twice``, ``no_flush``, see
+:mod:`heatbench.reference.mf`) and any other is refused.  A state left
+unchanged reads 1 on ``change_gap`` by construction and needs no run.  One
+JSON line per reading goes to standard output and to ``--out``; the
+benchmark's own runs never run this.
 """
 from __future__ import annotations
 
@@ -30,8 +32,7 @@ for _p in (HERE.parent / "src", HERE.parent):
 
 import torch  # noqa: E402
 
-from heatbench import check, harness, spec, traffic  # noqa: E402
-from heatbench.reference import mf as ref_mf  # noqa: E402
+from heatbench import harness, spec  # noqa: E402
 
 
 def _seeds(text: str) -> list:
@@ -42,22 +43,31 @@ def program_reading(cell, seed: int, dev) -> dict:
     """The program's readings for one seed."""
     run = harness.Run(cell, seed, dev, harness.Clock(time.perf_counter()))
     run.free_program()
-    values, detail = run.readings(run.reference())
+    values, detail = run.readings()
     return {"values": values, "detail": detail}
 
 
 def reference_reading(cell, seed: int, dev, **kw) -> dict:
     """The reference under ``kw`` (a lower precision or a fault) in the
-    program's place, against the fp32 reference, for one seed."""
-    rcfg = ref_mf.RefConfig.from_dict(cell.config)
-    batch = int(cell.traffic["batch_size"])
-    train_pos, _ = traffic.make_dataset(rcfg.num_users, rcfg.num_items,
-                                        cell.traffic, seed, dev)
-    ref = ref_mf.run(train_pos, rcfg, batch, seed, check.STEPS)
-    other = ref_mf.run(train_pos, rcfg, batch, seed, check.STEPS, **kw)
-    values, detail = check.readings(other["losses"], other["snaps"], ref,
-                                    rcfg.lr)
-    return {"values": values, "detail": detail}
+    program's place, against the reference, for one seed (the cell's
+    kind's ``reference_reading``)."""
+    return spec.kind_module(cell.kind).reference_reading(cell, seed, dev,
+                                                         **kw)
+
+
+def jobs(cell, program: str, control: str, faults) -> list:
+    """``(what, seed, keywords)`` of each reading asked for; a fault that
+    the cell's kind does not list is refused."""
+    kind = spec.kind_module(cell.kind)
+    out = ([("program", s, {}) for s in _seeds(program)]
+           + [("control", s, dict(kind.CONTROL)) for s in _seeds(control)])
+    for text in faults:
+        name, seeds = text.split(":")
+        if name not in kind.FAULTS:
+            raise ValueError(f"kind {cell.kind!r} plants no fault {name!r}; "
+                             f"it has {kind.FAULTS}")
+        out += [(name, s, {"fault": name}) for s in _seeds(seeds)]
+    return out
 
 
 def main(argv=None) -> int:
@@ -70,23 +80,18 @@ def main(argv=None) -> int:
                    help="NAME:SEEDS, repeated")
     p.add_argument("--out")
     args = p.parse_args(argv)
-    dev = torch.device("cuda")
     cell = spec.load_cell(args.workload)
-    jobs = ([("program", s, {}) for s in _seeds(args.program)]
-            + [("control", s, {"precision": "tf32"})
-               for s in _seeds(args.control)])
-    for text in args.fault:
-        name, seeds = text.split(":")
-        jobs += [(name, s, {"fault": name}) for s in _seeds(seeds)]
+    todo = jobs(cell, args.program, args.control, args.fault)
+    dev = torch.device("cuda")
     out = open(args.out, "a") if args.out else None
     try:
-        for kind, seed, kw in jobs:
+        for what, seed, kw in todo:
             t = time.perf_counter()
-            if kind == "program":
+            if what == "program":
                 r = program_reading(cell, seed, dev)
             else:
                 r = reference_reading(cell, seed, dev, **kw)
-            line = json.dumps({"workload": args.workload, "kind": kind,
+            line = json.dumps({"workload": args.workload, "kind": what,
                                "seed": seed, **r,
                                "seconds": time.perf_counter() - t,
                                "card": torch.cuda.get_device_name(dev),

@@ -4,8 +4,7 @@ the trace: the step's own Python and dispatch, which CUDA graphs or fewer
 launches would cut (a launch that waits on a full queue is a CUDA call, so
 it does not count).  Spans are mapped onto the trace's clock by
 ``heatbench/spans.py``.  Layer: the train loop and step.  It moves
-``train_samples_per_s`` most where the host sets the pace
-(``amazon_int8_b1024``)."""
+``train_samples_per_s`` most where the host sets the pace."""
 from heatbench import spans
 
 

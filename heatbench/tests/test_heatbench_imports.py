@@ -18,7 +18,7 @@ sys.path[:0] = [{src!r}, {root!r}]
 sys.path.insert(2, {tests!r})
 from conftest import tiny_cell
 from heatbench import harness, run
-r = harness.run_cell(tiny_cell("amazon_int8_b1024"), 5, 0.1, True,
+r = harness.run_cell(tiny_cell("amazon_int8_b16384"), 5, 0.1, True,
                      device="cpu", log=lambda s: None)
 print(json.dumps({{"correct": r["correct"],
                    "forbidden": run.forbidden_modules(),
@@ -54,7 +54,7 @@ def test_forbidden_names_are_compared_whole(monkeypatch):
 def test_no_card_means_no_result():
     out = subprocess.run(
         [sys.executable, str(ROOT / "heatbench" / "run.py"), "--workload",
-         "amazon_int8_b1024", "--seed", "1", "--seconds", "1", "--trace", "0"],
+         "amazon_int8_b16384", "--seed", "1", "--seconds", "1", "--trace", "0"],
         capture_output=True, text=True, timeout=300, env=_env(), cwd=ROOT)
     import torch
     if torch.cuda.is_available():

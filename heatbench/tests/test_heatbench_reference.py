@@ -13,7 +13,7 @@ from conftest import tiny_cell
 
 from heatbench import calibrate, check, harness
 
-CELLS = ["mf100m_b65536", "amazon_int8_b1024"]
+CELLS = ["mf100m_b65536", "amazon_int8_b16384"]
 SEED = 2**31 + 1234
 
 
@@ -120,7 +120,7 @@ def test_a_flush_that_keeps_the_weights_is_not_correct(monkeypatch):
     from repro_torch.core import aggregation
     monkeypatch.setattr(aggregation, "maybe_flush",
                         weights_kept_at_flush(aggregation.maybe_flush))
-    result = _run(tiny_cell("amazon_int8_b1024"))
+    result = _run(tiny_cell("amazon_int8_b16384"))
     assert result["correct"] is False
 
 
