@@ -49,7 +49,15 @@ Phases, one line each (a few print more):
      for bit, give the same bits on two calls and count the pieces past
      each run's first as the host counts them, timed beside its plain
      version on the card and the library path it replaced (the sorted copy
-     ``values[order]`` and ``segment_reduce``);
+     ``values[order]`` and ``segment_reduce``); the requantize kernel (#9) at
+     the int8 item and user updates of batch 16,384 (1,655,808 lanes with a
+     1,589,248-lane item-0 run into the 9.35M-row item table; 16,384 ids
+     into the 20.98M-row user table), which must agree bit for bit with its
+     plain version run on the card and count its segments as the host
+     does, timed beside its plain version (the requantize and scatters it
+     replaced) and the whole update (``_dedup``, the noise draw and the
+     requantize) with the kernel and with the plain version, with its
+     engaged share (segments requantized over lanes);
   4. the loss through the kernel autograd Function against the plain
      ``ccl_loss_fused``: loss and the three gradients;
   5. ``train_mf`` for 64 steps at batch 1,024 in windows of 16: finite
@@ -313,6 +321,11 @@ B, N_NEG, K, ROWS = 1024, 64, 128, 400_000
 STEPS, WINDOW = 64, 16
 INT8_STEPS, RESTART_STEPS = 64, 32
 DEQUANT_IDS = (1024, 16384)     # the sizes of AMAZON's user and history gathers
+#: the int8 AMAZON updates at batch 16,384: the item update's lanes (16,384
+#: positives, the tile's 1,024 slots, 16,384 x 100 history columns) and its
+#: history padding's item-0 run; the user update's lanes.
+REQUANT_ITEM_LANES, REQUANT_PAD_RUN, REQUANT_USER_LANES = 1_655_808, 1_589_248, 16_384
+REQUANT_LR = 0.05               # AMAZON's lr
 RTOL, ATOL = 1e-5, 1e-6      # |kernel - plain| <= ATOL + RTOL * |plain|
 LM_B, LM_S, LM_STEPS, LM_WINDOW, LM_LR = 8, 1024, 32, 8, 1e-3
 LM_RESTART_LAYERS, LM_RESTART_STEPS = 4, 8
@@ -508,6 +521,83 @@ def segment_sum_entry(shape: str, sidx, order, values, n: int, flush) -> dict:
         bound_ms=b_ms, bound_by=b_by,
         library_ms=time_ms(lambda: ss.sequential_sum(sidx, values[order], n), flush, slow),
         positions=m, longest_run=int(lengths.max()), pieces=pieces)
+
+
+def requantize_cases(dev, gen, num_items: int, num_users: int) -> dict:
+    """Kernel #9's two main-path shapes at K=128: name -> (ids, table rows).
+    ``item``: the int8 item update at batch 16,384, 1,655,808 lanes of which
+    the history padding's item 0 holds 1,589,248; the other 66,560 come in
+    runs of about 1.25 (as #8's case in phase 3) of distinct items over the
+    whole table; ``user``: 16,384 user ids over the whole user table."""
+    import torch
+    m, run = REQUANT_ITEM_LANES, REQUANT_PAD_RUN
+    rest = torch.cumsum((torch.rand(m - run, generator=gen, device=dev) < 0.8).long(), 0)
+    pool = torch.randperm(num_items - 1, generator=gen, device=dev)[:m - run + 1] + 1
+    items = torch.cat([torch.zeros(run, dtype=torch.int64, device=dev), pool[rest]])
+    items = items[torch.randperm(m, generator=gen, device=dev)]
+    users = torch.randint(0, num_users, (REQUANT_USER_LANES,), generator=gen, device=dev)
+    return {"item": (items, num_items), "user": (users, num_users)}
+
+
+def requantize_entry(shape: str, ids, rows: int, gen, flush) -> dict:
+    """Kernel #9 on ``ids``' update of a random ``rows``-row int8 table:
+    the duplicate pre-reduce and the noise as ``apply_updates`` makes them,
+    then the kernel against its plain version run on the card (bit for bit
+    in all four leaves, and a second call the same), its segment count
+    against the host's, and its kernel and plain times and those of the
+    whole update with each.  Bound: each live segment's id, gradient sum,
+    noise row, payload, residual and scales read once and its two rows and
+    scales written once."""
+    import torch
+    from repro_torch.kernels import requantize_rows as rq
+    from repro_torch.optim import quantization as qz
+    dev = ids.device
+    grads = torch.randn(ids.numel(), K, generator=gen, device=dev)
+    sids, seg, uids, reduced = qz._dedup(ids, grads)
+    noise = qz.uniform_noise(gen, reduced.shape, dev)
+    q = torch.randint(-127, 128, (rows, K), generator=gen, device=dev, dtype=torch.int8)
+    scale = torch.rand(rows, 1, generator=gen, device=dev) * 1e-2 + 1e-4
+    start = (q, scale, torch.randint(-127, 128, (rows, K), generator=gen, device=dev,
+                                     dtype=torch.int8), scale * 4e-3)
+    plain = [t.clone() for t in start]
+    rq.requantize_rows_plain_(*plain, sids, seg, uids, reduced, noise, REQUANT_LR)
+    counter = rq.requantized_rows(dev)
+    torch.cuda.synchronize()
+    before = int(counter.item())
+    got = [t.clone() for t in start]
+    rq.requantize_rows_(*got, sids, seg, uids, reduced, noise, REQUANT_LR)
+    torch.cuda.synchronize()
+    segments = int(counter.item()) - before
+    want_segments = int(torch.unique(ids).numel())
+    assert segments == want_segments, f"requantize {shape}: {segments} segments, host " \
+        f"{want_segments}"
+    for name, a, b_ in zip(qz.QuantizedTable._fields, got, plain):
+        assert torch.equal(a, b_), f"requantize {shape}: {name} differs from the plain version"
+    again = [t.clone() for t in start]
+    rq.requantize_rows_(*again, sids, seg, uids, reduced, noise, REQUANT_LR)
+    assert all(torch.equal(a, b_) for a, b_ in zip(again, got)), \
+        f"requantize {shape}: two calls differ"
+    del plain, got, again
+    b_ms, b_by = bound(segments * (12 * K + 24) + 8, segments * 20 * K)
+
+    def update(requant):
+        s_, g_, u_, r_ = qz._dedup(ids, grads)
+        requant(*start, s_, g_, u_, r_, qz.uniform_noise(gen, r_.shape, dev), REQUANT_LR)
+
+    return dict(
+        name="requantize_rows", shape=shape, route="cuda",
+        source="src/repro_torch/csrc/requantize_rows.cu",
+        replaces="the plain requantize and its 4 index_put_ scatters "
+                 "(src/repro_torch/optim/quantization.py::apply_updates)",
+        max_abs_err=0.0,
+        ms=time_ms(lambda: rq.requantize_rows_(*start, sids, seg, uids, reduced, noise,
+                                               REQUANT_LR), flush),
+        plain_ms=time_ms(lambda: rq.requantize_rows_plain_(*start, sids, seg, uids, reduced,
+                                                           noise, REQUANT_LR), flush),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        update_ms=time_ms(lambda: update(rq.requantize_rows_), flush),
+        update_plain_ms=time_ms(lambda: update(rq.requantize_rows_plain_), flush),
+        lanes=ids.numel(), segments=segments)
 
 
 def lm_eval_loss(params, cfg, opts, tile, dev, b: int = LM_B, s: int = LM_S,
@@ -1130,9 +1220,11 @@ def engines_phase(dev, card: str, ds, ds8, counters) -> None:
     launches = {c.name: c.count() for c in counters}
     assert len(losses) == AMAZON_POP_STEPS and all(math.isfinite(x) for x in losses), losses
     want = {c.name: 0 for c in counters}
-    # segment sums: the two tables' duplicate pre-reduces, the tile write-through
+    # segment sums: the two tables' duplicate pre-reduces, the tile write-through;
+    # a requantize a table
     want.update(ccl_stats=AMAZON_POP_STEPS, ccl_bwd=AMAZON_POP_STEPS,
-                gather_dequant=3 * AMAZON_POP_STEPS, segment_sum=3 * AMAZON_POP_STEPS)
+                gather_dequant=3 * AMAZON_POP_STEPS, segment_sum=3 * AMAZON_POP_STEPS,
+                requantize_rows=2 * AMAZON_POP_STEPS)
     assert launches == want, launches
     positive = int((dds8.item_weights > 0).sum())
     del state
@@ -1511,7 +1603,7 @@ def streaming_phase(dev, card: str, mf_trained, tile_server, counters) -> None:
     per_round = {"ccl_stats": STREAM_STEPS, "ccl_bwd": STREAM_STEPS,
                  "gather_fma": 2 * STREAM_STEPS, "gather_dequant": 0,
                  "ccl_stats_shared": 0, "ccl_bwd_shared": 0, "flash_attention": 0,
-                 "segment_sum": 2 * STREAM_STEPS}
+                 "segment_sum": 2 * STREAM_STEPS, "requantize_rows": 0}
     per_round_pop = dict(per_round, segment_sum=STREAM_STEPS)
 
     # ---- 17a: a cold-start streaming run with a live server ---------------
@@ -3583,6 +3675,7 @@ def main() -> int:
         embedding_update,
         flash_attention,
         ops,
+        requantize_rows,
         segment_sum,
     )
     from repro_torch.optim import quantization as qz
@@ -3716,6 +3809,22 @@ def main() -> int:
         del kd["positions"], kd["longest_run"], kd["pieces"]
         kernels.append(kd)
         del sidx, order, values
+    for shape, (ids, rows) in requantize_cases(dev, gen, AMAZON.num_items,
+                                               AMAZON.num_users).items():
+        kd = requantize_entry(shape, ids, rows, gen, flush)
+        print(f"[3 requantize_rows] {shape}: {kd['lanes']} lanes, {kd['segments']} segments "
+              f"(as the host counts them; engaged share {kd['segments'] / kd['lanes']:.4f} "
+              f"of the lanes) into a {rows}-row int8 table; bit for bit with the plain "
+              f"version on the card in all four leaves and on two calls; "
+              f"{kd['ms']:.4f} ms kernel, {kd['plain_ms']:.4f} ms plain (the requantize "
+              f"and 4 scatters it replaced), bound {kd['bound_ms']:.4f} ms "
+              f"({kd['bound_by']}; {bound_share(kd)}); the whole update (_dedup, noise, "
+              f"requantize) {kd['update_ms']:.4f} ms with the kernel, "
+              f"{kd['update_plain_ms']:.4f} ms with the plain version | {card}", flush=True)
+        for key in ("lanes", "segments", "update_ms", "update_plain_ms"):
+            del kd[key]
+        kernels.append(kd)
+        del ids
     torch.cuda.empty_cache()
 
     # ---- 4: the kernel loss against the plain fused loss -------------------
@@ -3745,7 +3854,8 @@ def main() -> int:
                 ccl_similarity.SHARED_STATS_LAUNCHES,
                 ccl_similarity.SHARED_BWD_LAUNCHES,
                 flash_attention.FLASH_LAUNCHES,
-                segment_sum.SEGMENT_SUM_LAUNCHES)
+                segment_sum.SEGMENT_SUM_LAUNCHES,
+                requantize_rows.REQUANTIZE_LAUNCHES)
     lm_idle = {"ccl_stats_shared": 0, "ccl_bwd_shared": 0, "flash_attention": 0}
     for c in counters:
         c.reset()
@@ -3768,7 +3878,7 @@ def main() -> int:
     # two segment sums per step (the slot reduction, the tile write-through).
     assert launches == {"ccl_stats": STEPS, "ccl_bwd": STEPS,
                         "gather_fma": 2 * STEPS, "gather_dequant": 0,
-                        "segment_sum": 2 * STEPS, **lm_idle}, launches
+                        "segment_sum": 2 * STEPS, "requantize_rows": 0, **lm_idle}, launches
     for kd in kernels:
         kd["launches"] = launches[kd["name"]]
     body = mf.make_scan_body(MF_100M_PALLAS, lambda s: pipeline.cf_batch_device(
@@ -3841,12 +3951,16 @@ def main() -> int:
     launches8 = {c.name: c.count() for c in counters}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     assert len(losses) == INT8_STEPS and all(math.isfinite(x) for x in losses), losses
+    # one requantize a table a step (the user update, the item groups')
     assert launches8 == {"ccl_stats": INT8_STEPS, "ccl_bwd": INT8_STEPS,
                          "gather_fma": 0, "gather_dequant": 3 * INT8_STEPS,
-                         "segment_sum": 4 * INT8_STEPS, **lm_idle}, launches8
+                         "segment_sum": 4 * INT8_STEPS,
+                         "requantize_rows": 2 * INT8_STEPS, **lm_idle}, launches8
     for kd in kernels:
         if kd.get("shape") == "dedup":          # the int8 update's segment sums
             kd["launches"] = launches8["segment_sum"]
+        if kd["name"] == "requantize_rows":
+            kd["launches"] = launches8["requantize_rows"]
     payload = {str(t.q.dtype) for t in (state.params.user_table,
                                         state.params.item_table)}
     assert payload == {"torch.int8"}, payload

@@ -16,10 +16,11 @@ stochastic rounding ``floor(x + u)`` whose noise ``u`` is drawn by
 :func:`uniform_noise` from the caller's generator, so a quantized trajectory
 is pure in (seed, step) and restarts bit for bit.  The update is
 deterministic on the card: a stable sort, a fixed-order segment sum into the
-reference's compacted layout (segment j in lane j), the requantization of the
-segments, and a scatter in which every lane of a run of equal ids writes its
-segment's values — no atomics, no host sync.  The tables are updated in
-place, as the fp32 tables are.
+reference's compacted layout (segment j in lane j), then the requantize of
+the segments and their store (``kernels/requantize_rows.py``; on the card
+one kernel that, like the reference's scatter, keeps the live segments only)
+— no atomics, no host sync.  The tables are updated in place, as the fp32
+tables are.
 """
 from __future__ import annotations
 
@@ -31,10 +32,8 @@ from repro_torch.core import tiling
 from repro_torch.distributed.sharding import ShardedRows
 from repro_torch.kernels.embedding_update import (
     gather_dequant_rows, gather_dequant_rows_plain)
-
-#: scale floor: an all-zero row (absmax 0) gets this scale instead of a
-#: division by zero, and still dequantizes to exact zeros.
-SCALE_FLOOR = 1e-12
+from repro_torch.kernels.requantize_rows import (
+    SCALE_FLOOR, requantize_rows_, row_quantize)
 
 #: the table_format vocabulary (MFConfig.table_format).
 TABLE_FORMATS = ("fp32", "int8")
@@ -74,15 +73,6 @@ class QuantizedTable(NamedTuple):
 Table = Union[torch.Tensor, QuantizedTable]
 
 
-def _row_quantize(x: torch.Tensor):
-    """Symmetric per-row absmax: (..., K) fp32 -> (int8, (..., 1) fp32),
-    round to nearest (ties to even, as ``jnp.round``)."""
-    absmax = x.abs().amax(dim=-1, keepdim=True)
-    scale = (absmax / 127.0).clamp_min(SCALE_FLOOR).to(torch.float32)
-    q = torch.round(x / scale).clamp(-127, 127).to(torch.int8)
-    return q, scale
-
-
 def uniform_noise(gen: torch.Generator, shape, device) -> torch.Tensor:
     """``U[0, 1)`` fp32 noise of ``shape`` from ``gen``: the one place the
     rounding draws happen (tests replay the reference's draws here)."""
@@ -105,7 +95,7 @@ def quantize_table(x: torch.Tensor) -> QuantizedTable:
     scale = torch.empty((x.shape[0], 1), dtype=torch.float32, device=x.device)
     for start in range(0, x.shape[0], QUANTIZE_CHUNK_ROWS):
         stop = start + QUANTIZE_CHUNK_ROWS
-        q[start:stop], scale[start:stop] = _row_quantize(x[start:stop])
+        q[start:stop], scale[start:stop] = row_quantize(x[start:stop])
     return QuantizedTable(q=q, scale=scale, err=torch.zeros_like(q),
                           err_scale=torch.full_like(scale, SCALE_FLOOR))
 
@@ -274,23 +264,8 @@ def apply_updates(table: QuantizedTable, ids: torch.Tensor, grads: torch.Tensor,
     if ids.shape[0] == 0:
         return table
     sids, seg, uids, g = _dedup(ids, grads)
-
-    rows = dequantize_rows(table, uids)
-    resid = gather_dequant_rows_plain(table.err, table.err_scale, uids)
-    new_rows = rows + resid - lr * g
-
-    absmax = new_rows.abs().amax(dim=-1, keepdim=True)
-    new_scale = (absmax / 127.0).clamp_min(SCALE_FLOOR).to(torch.float32)
-    q_new = stochastic_round(new_rows / new_scale, gen).clamp(-127, 127) \
-        .to(torch.int8)
-    err = new_rows - q_new.to(torch.float32) * new_scale
-    eq, escale = _row_quantize(err)
-
-    # Every lane of a run writes its segment's values: the writes to one row
-    # are identical, so the scatter is idempotent without atomics.
-    for dst, src in ((table.q, q_new), (table.scale, new_scale),
-                     (table.err, eq), (table.err_scale, escale)):
-        dst.index_put_((sids,), src[seg])
+    noise = uniform_noise(gen, g.shape, g.device)
+    requantize_rows_(*table, sids, seg, uids, g, noise, lr)
     return table
 
 
