@@ -156,12 +156,14 @@ class TileSampler:
             raise ValueError(
                 "sampler='tile' requires a resident tile in the sample "
                 "context (cfg.tile_size > 0)")
+        if tile.tile_emb is not None:
+            ids, embs, local = samplers.tile_sample(tile, gen, shape)
+            return NegSample(ids, embs, state, local_idx=local)
         local = torch.randint(0, tile.tile_ids.shape[0], tuple(shape),
                               generator=gen, device=gen.device)
         ids = tile.tile_ids[local]
-        embs = (qz.gather_rows(state.table, ids) if tile.tile_emb is None
-                else tile.tile_emb[local])
-        return NegSample(ids, embs, state, local_idx=local)
+        return NegSample(ids, qz.gather_rows(state.table, ids), state,
+                         local_idx=local)
 
 
 @register_sampler("auto")

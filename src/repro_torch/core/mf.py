@@ -222,9 +222,105 @@ def loss_and_grads(rows, aggregator, hist_mask, cfg: MFConfig,
     return loss.detach(), grads[:len(leaves)], agg_grads
 
 
+def reduces_slots(tile: Optional[samplers.TileState], local_idx) -> bool:
+    """Whether a step slot-reduces its tile-sourced negatives: when the tile
+    is no larger than the sample, the table takes N1 unique rows instead of
+    B*n duplicate-heavy ones and the write-through is a dense add."""
+    return (local_idx is not None
+            and tile.tile_ids.shape[0] <= local_idx.numel())
+
+
+def update_phase(state: MFState, tile, rng: int, cfg: MFConfig,
+                 engine: StepEngine, *, user, pos, neg, hist=None,
+                 agg_grads=None, owned=None, item_view=None,
+                 group=None) -> MFState:
+    """Steps (6) to (8), the update half of the single-device and of the
+    sharded step (``core/mf_distributed.py``); returns the new state.
+
+    ``user``, ``pos`` and ``hist`` (or None) are ``(ids, grads)`` in global
+    batch order; ``neg`` is ``(ids, grads, slots or None)`` or its (N1, K)
+    slot-reduced gradient; ``tile`` is the one the sampler read.  Sharded,
+    ``owned`` holds the two tables' ``RowShard.owned`` (a list it leaves
+    empty launches nothing), ``item_view`` maps the item table to what the
+    refresh reads and ``group`` sums the flush.  Each phase is a span."""
+    params = state.params
+    dev = user[0].device
+    quantized = isinstance(params.user_table, qz.QuantizedTable)
+    own_user, own_item = owned or (None, None)
+
+    # §3.1: only touched rows are written.  All of the step's item gradient
+    # groups go to ONE update (one kernel launch for the `pallas` update,
+    # one requantization per touched row for int8).
+    new_user = params.user_table
+    with spans.span("update.user"):
+        ids, grads = user if own_user is None else own_user(*user)
+        if quantized:
+            new_user = qz.apply_updates(
+                new_user, ids, grads, cfg.lr,
+                generator(fold_in(rng, ROUND_USER_SALT), dev))
+        elif ids.numel():
+            new_user = engine.row_update(new_user, ids, grads, cfg.lr)
+    new_item = params.item_table
+    with spans.span("update.item"):
+        if isinstance(neg, torch.Tensor):
+            reduced, neg_ids, g_neg, local = neg, None, None, None
+        else:
+            neg_ids, g_neg, local = neg
+            reduced = (samplers.reduce_local_grads(local, g_neg,
+                                                   tile.tile_ids.shape[0])
+                       if reduces_slots(tile, local) else None)
+        groups = [pos, (tile.tile_ids, reduced) if reduced is not None
+                  else (neg_ids, g_neg)]
+        if hist is not None:
+            groups.append(hist)
+        mine = groups if own_item is None else [own_item(*g) for g in groups]
+        if quantized:
+            new_item = qz.apply_updates_many(
+                new_item, mine, cfg.lr,
+                generator(fold_in(rng, ROUND_ITEM_SALT), dev))
+        elif any(i.numel() for i, _ in mine):
+            new_item = engine.row_update_many(new_item, mine, cfg.lr)
+
+    # Tile coherence: write the whole list through to the resident copy
+    # (exact fp32 updates, also over an int8 table: the tile drifts from the
+    # requantized rows by at most their rounding until it is refreshed),
+    # then refresh on schedule (§4.2).
+    if tile is not None:
+        with spans.span("tile.write"):
+            global_groups = [pos]
+            if reduced is not None:
+                tile = samplers.tile_apply_reduced(tile, reduced, cfg.lr)
+            elif local is not None:
+                tile = samplers.tile_apply_grads(tile, local, g_neg, cfg.lr)
+            else:
+                global_groups.append((neg_ids, g_neg))
+            if hist is not None:
+                global_groups.append(hist)
+            tile = samplers.tile_apply_global_grads_many(tile, global_groups,
+                                                         cfg.lr)
+        due = samplers.refresh_due(tile, cfg.refresh_interval)
+        with spans.span("tile.refresh", when=due):
+            tile = samplers.tile_refresh(
+                tile, generator(fold_in(rng, TILE_SALT), dev) if due else None,
+                new_item if item_view is None else item_view(new_item),
+                cfg.refresh_interval)
+
+    # Aggregator: local accumulation, deferred flush (§4.5 / Listing 1).
+    aggregator, accum = params.aggregator, state.accum
+    if aggregator is not None:
+        with spans.span("agg.accumulate"):
+            accum = agg.accumulate(accum, agg_grads)
+        with spans.span("agg.flush",
+                        when=agg.flush_due(accum, cfg.flush_every)):
+            aggregator, accum = agg.maybe_flush(accum, aggregator, cfg.lr,
+                                                cfg.flush_every, group=group)
+    return MFState(MFParams(new_user, new_item, aggregator), tile, accum,
+                   state.step + 1)
+
+
 def heat_train_step(state: MFState, batch: Batch, rng: int, cfg: MFConfig,
                     *, engine: Optional[StepEngine] = None,
-                    item_weights: Optional[torch.Tensor] = None, plan=None):
+                    item_weights: Optional[torch.Tensor] = None):
     """One HEAT iteration; returns ``(new_state, loss)`` with the loss a
     0-d tensor on the device.
 
@@ -241,21 +337,11 @@ def heat_train_step(state: MFState, batch: Batch, rng: int, cfg: MFConfig,
     ``item_weights`` ((I,) unnormalized, for ``popularity``).  The tables
     are updated in place.
 
-    ``plan`` (a ``core/mf_distributed.py::MFShardingPlan``) runs the step
-    sharded: ``state`` is this rank's part, ``batch`` the *global* batch
-    (the same on every rank), and the loss the global batch's
-    (:func:`~repro_torch.core.mf_distributed.sharded_train_step`).
-
-    Unsharded, each phase is a span of ``train/spans.py`` (``gather``,
-    ``sample``, ``loss``, ``update.user``, ``update.item``, ``tile.write``,
-    ``tile.refresh`` on the steps that redraw, ``agg.accumulate``,
-    ``agg.flush`` on the steps that flush)."""
+    Each phase is a span of ``train/spans.py``: ``gather``, ``sample``,
+    ``loss``, then :func:`update_phase`'s."""
     if engine is None:
         engine = resolve_engine(cfg)
-    if plan is not None:
-        return plan.train_step(state, batch, rng, cfg, engine=engine,
-                               item_weights=item_weights)
-    params, tile = state.params, state.tile
+    params = state.params
     dev = batch.user_ids.device
     quantized = isinstance(params.user_table, qz.QuantizedTable)
     in_kernel = quantized and engine.backend == "pallas"
@@ -269,14 +355,12 @@ def heat_train_step(state: MFState, batch: Batch, rng: int, cfg: MFConfig,
     n_shape = (batch.user_ids.shape[0], cfg.num_negatives)
     with spans.span("sample"):
         drawn = engine.sampler.sample(
-            SampleContext(table=params.item_table, tile=tile,
+            SampleContext(table=params.item_table, tile=state.tile,
                           pos_ids=batch.pos_ids, weights=item_weights),
             generator(fold_in(rng, NEG_SALT), dev), n_shape)
-    neg_ids, neg_e, neg_local = drawn.ids, drawn.embs, drawn.local_idx
-    tile = drawn.state.tile
 
     aggregator = params.aggregator
-    rows = [user_e, pos_e, neg_e]
+    rows = [user_e, pos_e, drawn.embs]
     if aggregator is not None:
         with spans.span("gather"):
             rows.append(qz.gather_rows(params.item_table, batch.hist_ids,
@@ -284,80 +368,12 @@ def heat_train_step(state: MFState, batch: Batch, rng: int, cfg: MFConfig,
     with spans.span("loss"):
         loss, grads, agg_grads = loss_and_grads(rows, aggregator,
                                                 batch.hist_mask, cfg, engine)
-    g_user, g_pos, g_neg = grads[:3]
-
-    # §3.1: only touched rows are written.  All of the step's item gradient
-    # groups go to ONE update (one kernel launch for the `pallas` update,
-    # one requantization per touched row for int8).  Tile-sourced negatives
-    # are slot-reduced first when the tile is no larger than the sample, so
-    # the table takes N1 unique rows instead of B*n duplicate-heavy ones and
-    # the tile write-through is a dense add; a tile larger than the sample
-    # keeps per-sample rows.
-    with spans.span("update.user"):
-        if quantized:
-            new_user = qz.apply_updates(
-                params.user_table, batch.user_ids, g_user, cfg.lr,
-                generator(fold_in(rng, ROUND_USER_SALT), dev))
-        else:
-            new_user = engine.row_update(params.user_table, batch.user_ids,
-                                         g_user, cfg.lr)
-    with spans.span("update.item"):
-        neg_reduced = None
-        item_groups = [(batch.pos_ids, g_pos)]
-        if (neg_local is not None
-                and tile.tile_ids.shape[0] <= neg_local.numel()):
-            neg_reduced = samplers.reduce_local_grads(neg_local, g_neg,
-                                                      tile.tile_ids.shape[0])
-            item_groups.append((tile.tile_ids, neg_reduced))
-        else:
-            item_groups.append((neg_ids, g_neg))
-        if aggregator is not None:
-            item_groups.append((batch.hist_ids, grads[3]))
-        if quantized:
-            new_item = qz.apply_updates_many(
-                params.item_table, item_groups, cfg.lr,
-                generator(fold_in(rng, ROUND_ITEM_SALT), dev))
-        else:
-            new_item = engine.row_update_many(params.item_table, item_groups,
-                                              cfg.lr)
-
-    # Tile coherence: write the same updates through to the resident copy
-    # (exact fp32 updates, also over an int8 table: the tile drifts from the
-    # requantized rows by at most their rounding until it is refreshed),
-    # then refresh on schedule (§4.2).
-    if tile is not None:
-        with spans.span("tile.write"):
-            global_groups = [(batch.pos_ids, g_pos)]
-            if neg_reduced is not None:
-                tile = samplers.tile_apply_reduced(tile, neg_reduced, cfg.lr)
-            elif neg_local is not None:
-                tile = samplers.tile_apply_grads(tile, neg_local, g_neg,
-                                                 cfg.lr)
-            else:
-                global_groups.append((neg_ids, g_neg))
-            if aggregator is not None:
-                global_groups.append((batch.hist_ids, grads[3]))
-            tile = samplers.tile_apply_global_grads_many(tile, global_groups,
-                                                         cfg.lr)
-        with spans.span("tile.refresh", when=samplers.refresh_due(
-                tile, cfg.refresh_interval)):
-            tile = samplers.tile_refresh(
-                tile, generator(fold_in(rng, TILE_SALT), dev), new_item,
-                cfg.refresh_interval)
-
-    # Aggregator: local accumulation, deferred flush (§4.5 / Listing 1).
-    accum = state.accum
-    if aggregator is not None:
-        with spans.span("agg.accumulate"):
-            accum = agg.accumulate(accum, agg_grads)
-        with spans.span("agg.flush",
-                        when=agg.flush_due(accum, cfg.flush_every)):
-            aggregator, accum = agg.maybe_flush(accum, aggregator, cfg.lr,
-                                                cfg.flush_every)
-
-    new_state = MFState(MFParams(new_user, new_item, aggregator), tile, accum,
-                        state.step + 1)
-    return new_state, loss
+    return update_phase(
+        state, drawn.state.tile, rng, cfg, engine,
+        user=(batch.user_ids, grads[0]), pos=(batch.pos_ids, grads[1]),
+        neg=(drawn.ids, grads[2], drawn.local_idx),
+        hist=None if aggregator is None else (batch.hist_ids, grads[3]),
+        agg_grads=agg_grads), loss
 
 
 def make_scan_body(cfg: MFConfig, batch_fn, seed: int, *,
@@ -368,18 +384,19 @@ def make_scan_body(cfg: MFConfig, batch_fn, seed: int, *,
     step key is ``fold_in(seed, step)``, so a window is pure in
     (state, seed, start).  ``item_weights`` (for example
     ``DeviceCFDataset.item_weights``) feeds the ``popularity`` sampler;
-    ``plan`` runs each step sharded (``batch_fn`` then draws the global
+    ``plan`` (a ``core/mf_distributed.py::MFShardingPlan``) runs each step
+    sharded through ``plan.train_step`` (``batch_fn`` then draws the global
     batch).  Unsharded, the batch draw is a ``batch`` span
     (``train/spans.py``)."""
     if engine is None:
         engine = resolve_engine(cfg)
+    step_fn = heat_train_step if plan is None else plan.train_step
 
     def body(state: MFState, step: int):
         with spans.span("batch", when=plan is None):
             batch = batch_fn(step)
-        return heat_train_step(state, batch, fold_in(seed, step), cfg,
-                               engine=engine, item_weights=item_weights,
-                               plan=plan)
+        return step_fn(state, batch, fold_in(seed, step), cfg, engine=engine,
+                       item_weights=item_weights)
 
     return body
 

@@ -30,13 +30,10 @@ collectives (``distributed/sharding.py``):
   4. one all-gather along the data axes brings every rank the step's
      (ids, grads) in global batch order, the tile's slot-reduced negative
      gradients (partial sums, summed in rank order) and the loss parts;
-  5. each rank hands the global update list, kept to its own rows in order
-     with local ids, to the engine's ``row_update`` / ``row_update_many`` —
-     the ``pallas`` update still launches the gather-FMA kernel, on the
-     shard — and writes the whole list through to its tile; the tile
-     refresh reads the item rows through the lookup;
-  6. the aggregator's gradients stay local until a flush step
-     (``aggregation.maybe_flush(group=)``).
+  5. each rank runs the single-device step's update half
+     (``mf.update_phase``) on the global update list: each table takes it
+     kept to the rank's own rows, the tile the whole list, the refresh reads
+     through the lookup, and the aggregator flushes over the batch group.
 
 Every cross-rank float sum is an all-gather and a sum in rank order, so two
 sharded runs agree bit for bit.  A run tracks the single-device run to
@@ -342,7 +339,7 @@ def sharded_train_step(plan: MFShardingPlan, state: mf.MFState,
 
     # The exchange: one all-gather along the data axes.  Row-aligned parts
     # are padded to the largest shard's rows (shards differ by at most one).
-    reduce = slots is not None and tile.tile_ids.shape[0] <= slots.numel()
+    reduce = mf.reduces_slots(tile, slots)
     most = -(-b // group.size)
     pad = lambda x: shd.pad_rows(x, most)                     # noqa: E731
     parts = [pad(local.user_ids), pad(grads[0]), pad(local.pos_ids),
@@ -367,62 +364,17 @@ def sharded_train_step(plan: MFShardingPlan, state: mf.MFState,
             acc.add_(m[i])
         return acc
 
-    ids_user, g_user, ids_pos, g_pos = (rows_of(i) for i in range(4))
-    nxt = 4
-    neg_reduced = ids_neg = g_neg = None
-    if reduce:
-        neg_reduced, nxt = summed(4), 5
-    else:
-        ids_neg, g_neg, nxt = rows_of(4), rows_of(5), 6
-    ids_hist = g_hist = None
-    if aggregator is not None:
-        ids_hist, g_hist, nxt = rows_of(nxt), rows_of(nxt + 1), nxt + 2
-    loss = summed(nxt)[0]
-
-    # §3.1 on the shard: the global update list, kept to this rank's rows
-    # in order, in one update per table (an empty list launches nothing).
-    new_user = params.user_table
-    u_ids, u_grads = users.owned(ids_user, g_user)
-    if u_ids.numel():
-        new_user = engine.row_update(params.user_table, u_ids, u_grads, cfg.lr)
-    groups = [(ids_pos, g_pos),
-              (tile.tile_ids, neg_reduced) if reduce else (ids_neg, g_neg)]
-    if aggregator is not None:
-        groups.append((ids_hist, g_hist))
-    mine = [items.owned(i, g) for i, g in groups]
-    new_item = params.item_table
-    if any(i.numel() for i, _ in mine):
-        new_item = engine.row_update_many(params.item_table, mine, cfg.lr)
-
-    # The replicated tile takes the whole list, then refreshes on schedule
-    # from the sharded item table.
-    if tile is not None:
-        global_groups = [(ids_pos, g_pos)]
-        if reduce:
-            tile = samplers.tile_apply_reduced(tile, neg_reduced, cfg.lr)
-        elif slots is not None:
-            tile = samplers.tile_apply_grads(tile, slots, g_neg, cfg.lr)
-        else:
-            global_groups.append((ids_neg, g_neg))
-        if aggregator is not None:
-            global_groups.append((ids_hist, g_hist))
-        tile = samplers.tile_apply_global_grads_many(tile, global_groups,
-                                                     cfg.lr)
-        if tile.step >= cfg.refresh_interval - 1:
-            gen = mf.generator(mf.fold_in(rng, mf.TILE_SALT), dev)
-            ids = samplers.sample_unique(gen, cfg.num_items,
-                                         tile.tile_ids.shape[0])
-            tile = samplers.TileState(ids, items.lookup(new_item, ids), 0)
-        else:
-            tile = tile._replace(step=tile.step + 1)
-
-    accum = state.accum
-    if aggregator is not None:
-        accum = agg.accumulate(accum, agg_grads)
-        aggregator, accum = agg.maybe_flush(accum, aggregator, cfg.lr,
-                                            cfg.flush_every, group=group)
-    return mf.MFState(mf.MFParams(new_user, new_item, aggregator), tile,
-                      accum, state.step + 1), loss
+    neg = summed(4) if reduce else (rows_of(4), rows_of(5), slots)
+    hist = None if aggregator is None else (rows_of(-3), rows_of(-2))
+    # The update half on the shard: each table takes the global list kept
+    # to this rank's rows; the replicated tile takes the whole list and
+    # refreshes from the sharded item table through the lookup.
+    new_state = mf.update_phase(
+        state, tile, rng, cfg, engine, user=(rows_of(0), rows_of(1)),
+        pos=(rows_of(2), rows_of(3)), neg=neg, hist=hist, agg_grads=agg_grads,
+        owned=(users.owned, items.owned),
+        item_view=lambda table: shd.ShardedRows(table, items), group=group)
+    return new_state, summed(-1)[0]
 
 
 def build_mf_cell(cfg: mf.MFConfig, mesh, global_batch: int,

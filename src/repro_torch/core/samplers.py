@@ -61,16 +61,18 @@ def id_tile_init(gen: torch.Generator, num_items: int,
     return TileState(sample_unique(gen, num_items, tile_size), None, 0)
 
 
-def refresh_due(state: TileState, refresh_interval: int) -> bool:
-    """Whether :func:`tile_refresh` redraws the tile at this step."""
+def refresh_due(state, refresh_interval: int) -> bool:
+    """Whether :func:`tile_refresh` (or :func:`sharded_tile_refresh`)
+    redraws at this step."""
     return state.step >= refresh_interval - 1
 
 
 def tile_refresh(state: TileState, gen: torch.Generator, item_table,
                  refresh_interval: int) -> TileState:
     """Redraw the tile from the live table every ``refresh_interval`` steps,
-    else count the step.  An id-only tile redraws its ids only (the table
-    gives just the size of the sampling space)."""
+    else count the step (``gen`` is read only on a redraw).  An id-only
+    tile redraws its ids only (the table gives just the size of the
+    sampling space)."""
     if refresh_due(state, refresh_interval):
         ids = sample_unique(gen, qz.num_rows(item_table),
                             state.tile_ids.shape[0])
@@ -188,8 +190,8 @@ def sharded_tile_refresh(state: ShardedTileState, gen: torch.Generator,
                          item_table: torch.Tensor,
                          refresh_interval: int) -> ShardedTileState:
     """Interval-gated redraw of every shard's tile ids and rows (fp32
-    tables), else count the step."""
-    if state.step >= refresh_interval - 1:
+    tables), else count the step (:func:`refresh_due`'s schedule)."""
+    if refresh_due(state, refresh_interval):
         ids = _sharded_unique_ids(gen, item_table.shape[0],
                                   state.tile_ids.shape[0],
                                   state.tile_ids.shape[1])

@@ -15,8 +15,8 @@
 // (q and o 31.5 MB each, k and v 10.5 MB each), about 25 us at 3.35 TB/s.
 //
 // Arithmetic: fp32 FMAs on the SIMT pipes.  Split TF32 on the tensor cores
-// ("3xTF32", kept as csrc/attempts/flash_attention_3xtf32.cu and measured by
-// tools/probe_kernels.py) ran in 450 us but missed the kernel tolerance on
+// ("3xTF32", kept in git history at commit 162143c and measured by
+// tools/probe_kernels.py there) ran in 450 us but missed the kernel tolerance on
 // the model's own q, k, v, whose logits are large: each product keeps about
 // 2^-21 of its size there against fp32's 2^-24 (PERF.md).
 //

@@ -24,10 +24,10 @@
 // lane, so a warp writes each 512-byte row whole.  Row offsets are 64-bit
 // (tables past 2^31 bytes).
 //
-// What the card showed (tools/probe_kernels.py, part dequant, which times
-// this kernel beside csrc/attempts/gather_dequant_rows.cu, several rows a
-// warp and streaming stores, and csrc/attempts/gather_dequant_tiles.cu;
-// PERF.md, kernel #5): many independent warps with one row each beat fewer
+// What the card showed (tools/probe_kernels.py, part dequant, timing this
+// kernel beside two unshipped variants kept in git history at commit
+// 36a1c8c: several rows a warp and streaming stores, and warp tiles with
+// 16-byte pieces; PERF.md, kernel #5): many independent warps with one row each beat fewer
 // warps with several rows in flight, a warp instruction that spans several
 // random rows or scales (16-byte pieces, 8 lanes a row) runs slower than one
 // that reads one row, 16-byte pieces leave each float4 store a half-filled

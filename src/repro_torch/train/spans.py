@@ -33,8 +33,10 @@ round's phases in ``stream/service.py``):
                    ``guard`` and ``refresh``
 =================  ==========================================================
 
-Only the single-device MF step records its phases; a sharded step and an
-LM step record the ``window`` and ``step`` spans alone.
+The single-device MF step records all of its phases.  The sharded MF step
+shares the update phases (``update.user`` to ``agg.flush``, in
+``core/mf.py::update_phase``) and records those alone besides ``window``
+and ``step``; an LM step records the ``window`` and ``step`` spans alone.
 
 **Anchors.**  A recorded ``window`` span that runs with CUDA initialized
 brackets one ``cudaStreamQuery`` of the current stream (:data:`ANCHOR_CALL`)

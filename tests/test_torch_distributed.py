@@ -14,7 +14,8 @@ the reference's single-device step:
   every step and in the final state: fused, autodiff and pallas at data=4,
   (data=2, model=2) with uniform and with tile negatives (the refresh reads
   the model-sharded table), ``self_attn`` history flushed every 3 steps, an
-  uneven batch of 52 over 4 ranks;
+  uneven batch of 52 over 4 ranks, and at data=2 ``avg`` history written
+  through to a tile;
 * sharded against sharded, bit for bit: a crash mid-window resumed from the
   window-edge checkpoint, and every rank's gathered state;
 * elastic checkpoints: saved by 2 ranks and trained on by 1, and the other
@@ -78,6 +79,10 @@ MATRIX = {"fused": dict(backend="fused"), "autodiff": dict(backend="autodiff"),
 TILE = dict(tile_size=32, refresh_interval=5)
 SELF_ATTN = dict(backend="fused", history_len=4, aggregation_kind="self_attn",
                  flush_every=3)
+#: history rows written through to the tile: refresh at step 5, flushes at 3
+#: and 6
+HIST_TILE = dict(backend="fused", history_len=4, aggregation_kind="avg",
+                 flush_every=3, **TILE)
 MESH22 = {"uniform": dict(backend="fused"),
           "tile": dict(backend="pallas", update_impl="pallas", **TILE)}
 CRASH = dict(backend="fused", **TILE)
@@ -226,9 +231,9 @@ def _replay(cases, mesh) -> list:
                 tsam.sample_unique = lambda gen, num, n, ids=ids: ids
             batch = mf.Batch(torch.as_tensor(c["users"]).long(),
                              torch.as_tensor(c["pos"]).long())
-            new, loss = mf.heat_train_step(
+            new, loss = plan.train_step(
                 state, batch, 0, cfg,
-                engine=teng.resolve_engine(cfg, sampler="replay"), plan=plan)
+                engine=teng.resolve_engine(cfg, sampler="replay"))
             tsam.sample_unique = orig
             out.append((convert.mf_state_to_numpy(plan.gather_state(new)),
                         float(loss)))
@@ -303,11 +308,13 @@ def _mesh22_rank(cases, topk_users) -> dict:
 
 
 def _data2_rank(cases, tmp: str) -> dict:
-    """data=2: the replayed step, the exchanges, compressed_psum over a pod
-    axis of 2, and checkpoints across world sizes."""
+    """data=2: the replayed step, avg history through a tile, the
+    exchanges, compressed_psum over a pod axis of 2, and checkpoints across
+    world sizes."""
     mesh = make_data_mesh(2)
     rank = dist.get_rank()
-    out = {"replay": _replay(cases, mesh)}
+    out = {"replay": _replay(cases, mesh),
+           "hist_tile": _train(HIST_TILE, mesh, steps=6, k=3)}
 
     # The exchanges: parts of mixed dtypes in rank order; a sum over ranks
     # with the same bits on every rank; the owner-masked lookup exact.
@@ -365,6 +372,7 @@ def single():
     """The single-device port runs the sharded runs are held to."""
     out = {name: _train(dict(kw, **TILE)) for name, kw in MATRIX.items()}
     out["self_attn"] = _train(SELF_ATTN, steps=6, k=3)
+    out["hist_tile"] = _train(HIST_TILE, steps=6, k=3)
     out["uneven"] = _train(dict(backend="fused"), steps=6, k=3, batch=52)
     out.update({f"mesh22-{n}": _train(kw) for n, kw in MESH22.items()})
     out["crash"] = _train(CRASH, steps=16, k=8)
@@ -449,6 +457,14 @@ def test_data4_crash_resume_is_bit_exact(data4, single):
                   single["crash"])
     for r in data4[1:]:
         _assert_same(r["crash"], r0["crash"])     # every rank gathers it
+
+
+def test_data2_history_tile_tracks_single_device(data2, single):
+    """avg history rows written through to the replicated tile, with a
+    refresh and two flushes: every step's loss and the whole final state
+    within 1e-5 on both ranks."""
+    for r in data2[1]:
+        _assert_close(r["hist_tile"], single["hist_tile"])
 
 
 @pytest.mark.parametrize("name", list(MESH22))

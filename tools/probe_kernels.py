@@ -49,8 +49,7 @@ otherwise.
   checkout's kernel too, and the two timed in alternation after each flush.
 - ``flash``: ``csrc/flash_attention.cu`` (fp32 on the SIMT pipes), copies
   of it without the FMAs of q k^T and without those of P v (garbage
-  results; only their time is read), and the split-TF32 attempt
-  ``csrc/attempts/flash_attention_3xtf32.cu``, at smollm-360m's attention
+  results; only their time is read), at smollm-360m's attention
   shape (B=8, Hq=15, Hkv=5, S=1,024, D=64), causal and full: each one's
   time, and its largest error against the plain version
   (``ref.attention_ref``) and whether every element is within
@@ -70,11 +69,8 @@ otherwise.
   and history (16,384 into 9,350,000 x 128), each checked bit for bit
   against its plain version, then timed in alternation with
   ``q.index_select`` and a one-element kernel (the floor of this way of
-  timing), as ``ties`` does, and with the unshipped variants under
-  ``csrc/attempts/`` (after the written flush only): several rows a warp and
-  streaming stores (``gather_dequant_rows.cu``), and warp tiles with 16-byte
-  pieces (``gather_dequant_tiles.cu``); with ``--earlier``, the earlier
-  checkout's kernel joins the alternation.
+  timing), as ``ties`` does; with ``--earlier``, the earlier checkout's
+  kernel joins the alternation.
 - ``segment_sum``: ``csrc/segment_sum.cu`` (kernel #8) at the three shapes
   of the benchmark's segment sums, on sorted ids read through a random
   permutation: the int8 item update's duplicate pre-reduce at batch 16,384
@@ -138,7 +134,6 @@ AMAZON_USERS = 20_980_000
 AMAZON_ITEMS = 9_350_000
 PARTS = ("stats", "bwd", "bwd_mf", "stats_mf", "flash", "ties", "dequant", "segment_sum",
          "launches", "step_stats", "l2")
-ATTEMPTS = os.path.join(CSRC, "attempts")
 _BWD_MF_ARGS = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 3 + [ctypes.c_float] * 2 + [
     ctypes.c_void_p]
 _DEQUANT_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
@@ -155,14 +150,6 @@ STATS_MF_VARIANTS = {
     "ccl_stats, 16 negatives a warp": ((_GROUP, "constexpr int kGroup = 16;"),),
     "ccl_stats, 16 negatives a warp, plain loads (the first design)": (
         (_GROUP, "constexpr int kGroup = 16;"), (_LDCS, _LOAD)),
-}
-#: the unshipped gather-dequant variants that part ``dequant`` also times:
-#: each source under ``csrc/attempts/`` with the compiler flags (its
-#: switches) of each copy.
-DEQUANT_ATTEMPTS = {
-    "gather_dequant_rows": (("-DROWS_PER_WARP=2",), ("-DROWS_PER_WARP=4",),
-                            ("-DSTREAMING_STORES=1",)),
-    "gather_dequant_tiles": ((), ("-DSTREAMING_STORES=1",), ("-DMAX_PIECE=4", "-DTILE_ROWS=8")),
 }
 
 _COMPUTE = "    const float* su = ring + (c % STAGES) * STAGE_FLOATS;"
@@ -477,7 +464,7 @@ _FLASH_CUTS = {
 
 
 def part_flash(dev, timer: Timer, card: str) -> None:
-    """The flash kernel and its split-TF32 attempt: time and accuracy."""
+    """The flash kernel and its cut copies: time and accuracy."""
     import torch
     from repro_torch.kernels import ref
     src = read_source("flash_attention")
@@ -486,8 +473,6 @@ def part_flash(dev, timer: Timer, card: str) -> None:
         if old not in src:
             raise ValueError(f"flash_attention.cu no longer contains {old!r}")
         srcs[name] = (src.replace(old, new), ())
-    with open(os.path.join(ATTEMPTS, "flash_attention_3xtf32.cu")) as f:
-        srcs["flash_attention_3xtf32 (attempt)"] = (f.read(), ())
     libs = build(srcs, "flash")
     b, hq, hkv, s, d = 8, 15, 5, 1024, 64
     gen = torch.Generator(device=dev)
@@ -650,15 +635,9 @@ def part_dequant(dev, timer: Timer, card: str, earlier: str | None) -> None:
     where one is given."""
     import torch
     from repro_torch.kernels import embedding_update
-    variants = {}
-    for attempt, copies in DEQUANT_ATTEMPTS.items():
-        with open(os.path.join(ATTEMPTS, attempt + ".cu")) as f:
-            src = f.read()
-        variants.update({f"attempt {attempt} {' '.join(flags)}".strip(): (src, flags)
-                         for flags in copies})
-    variants.update(earlier_source(earlier, "gather_dequant"))
     fns = {name: bind(lib, "gather_dequant_rows", _DEQUANT_ARGS)
-           for name, lib in build(variants, "dequant").items()}
+           for name, lib in build(earlier_source(earlier, "gather_dequant"),
+                                  "dequant").items()}
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     one = torch.zeros(1, device=dev)
@@ -690,9 +669,6 @@ def part_dequant(dev, timer: Timer, card: str, earlier: str | None) -> None:
             calls["q.index_select"] = lambda q8=q8, ids=ids: q8.index_select(0, ids)
             calls["one-element kernel"] = lambda: one.add_(1)
             for flush, evict in (("written", None), ("read", timer.flush.sum)):
-                if flush == "read":     # the kernels of the table only
-                    calls = {n: fn for n, fn in calls.items()
-                             if not n.startswith("attempt")}
                 times = alternate(timer, calls, evict=evict)
                 print(f"dequant {case} gather ({n_ids} ids into {rows} x 128 int8, bit for "
                       f"bit), after a {flush} flush: "
