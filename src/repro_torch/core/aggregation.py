@@ -48,6 +48,27 @@ def init_aggregator(gen: torch.Generator, emb_dim: int, kind: str = "avg",
     return AggregatorParams(w=w, attn_q=attn_q)
 
 
+class _MaskedHistorySum(torch.autograd.Function):
+    """``einsum("bhk,bh->bk", hist_emb, hist_mask)`` whose backward returns
+    the (B, H, K) history gradient row-major.  Autograd's own backward of
+    the einsum gives it strides (H*K, 1, H), and the row update's
+    ``reshape(-1, K)`` of such a tensor is a transposed copy; here it is a
+    view.  The gradient holds the same products bit for bit: a k = 1
+    ``bmm`` adds each product to +0.0, as the einsum's backward does, so a
+    zero mask gives +0.0 where a plain product could give -0.0.  The mask
+    takes no gradient."""
+
+    @staticmethod
+    def forward(ctx, hist_emb, hist_mask):
+        ctx.save_for_backward(hist_mask)
+        return torch.einsum("bhk,bh->bk", hist_emb, hist_mask)
+
+    @staticmethod
+    def backward(ctx, g):
+        (hist_mask,) = ctx.saved_tensors
+        return torch.bmm(hist_mask[:, :, None], g[:, None, :]), None
+
+
 def aggregate(params: AggregatorParams, user_emb: torch.Tensor,
               hist_emb: torch.Tensor, hist_mask: torch.Tensor, *,
               gate: float = 0.5, kind: str = "avg") -> torch.Tensor:
@@ -56,7 +77,7 @@ def aggregate(params: AggregatorParams, user_emb: torch.Tensor,
     ``user_attn`` — the three of §4.5."""
     denom = hist_mask.sum(-1, keepdim=True).clamp_min(1.0)
     if kind == "avg":
-        pooled = torch.einsum("bhk,bh->bk", hist_emb, hist_mask) / denom
+        pooled = _MaskedHistorySum.apply(hist_emb, hist_mask) / denom
     elif kind == "self_attn":
         scores = torch.einsum("bhk,kq,bjq->bhj", hist_emb, params.attn_q,
                               hist_emb)

@@ -429,6 +429,96 @@ def test_aggregate_and_gradients_match_reference(kind):
                                    atol=ATOL)
 
 
+def _bits(t):
+    """A float32 tensor's bits, so that signs of zero count."""
+    return t.detach().contiguous().view(torch.int32)
+
+
+def _plain_aggregate(params, user_emb, hist_emb, hist_mask, gate, kind):
+    """``aggregate``'s formulas with autograd's own backward of each
+    product (the ``avg`` pooling through the plain einsum)."""
+    denom = hist_mask.sum(-1, keepdim=True).clamp_min(1.0)
+    if kind == "avg":
+        pooled = torch.einsum("bhk,bh->bk", hist_emb, hist_mask) / denom
+    elif kind == "self_attn":
+        scores = torch.einsum("bhk,kq,bjq->bhj", hist_emb, params.attn_q,
+                              hist_emb)
+        scores = torch.where(hist_mask[:, None, :] > 0, scores, -1e9)
+        attn = torch.softmax(scores / np.sqrt(hist_emb.shape[-1]), dim=-1)
+        ctx = torch.einsum("bhj,bjk->bhk", attn, hist_emb)
+        pooled = torch.einsum("bhk,bh->bk", ctx, hist_mask) / denom
+    else:
+        scores = torch.einsum("bk,kq,bhq->bh", user_emb, params.attn_q,
+                              hist_emb)
+        scores = torch.where(hist_mask > 0, scores, -1e9)
+        attn = torch.softmax(scores / np.sqrt(hist_emb.shape[-1]), dim=-1)
+        pooled = torch.einsum("bh,bhk->bk", attn, hist_emb)
+    return gate * user_emb + (1.0 - gate) * (pooled @ params.w)
+
+
+@pytest.mark.parametrize("b,h,k", [(6, 4, 8), (5, 100, 128)])
+@pytest.mark.parametrize("rows", ["mixed", "all_padding", "all_filled"])
+def test_avg_history_gradient_is_row_major_with_the_plain_bits(rows, b, h, k):
+    """The ``avg`` pooling's history gradient comes out row-major, so the
+    row update's ``reshape(-1, K)`` is a view, and holds the bits of
+    autograd through the plain einsum (signs of zero included), as do the
+    output and the other gradients.  ``mixed`` has a row of padding only,
+    a filled row and partly filled rows."""
+    user, hist, mask, w, _ = _agg_inputs("avg", seed=4, b=b, h=h, k=k)
+    if rows != "mixed":
+        mask[:] = 0.0 if rows == "all_padding" else 1.0
+    cot = torch.as_tensor(
+        np.random.default_rng(5).standard_normal(user.shape).astype(np.float32))
+    got, want = [], []
+    for fn, out in ((tagg.aggregate, got), (_plain_aggregate, want)):
+        leaves = [torch.as_tensor(x).requires_grad_() for x in (user, hist, w)]
+        fused = fn(tagg.AggregatorParams(leaves[2]), leaves[0], leaves[1],
+                   torch.as_tensor(mask), gate=0.3, kind="avg")
+        out.extend([fused, *torch.autograd.grad((fused * cot).sum(), leaves)])
+    g_hist = got[2]
+    assert g_hist.is_contiguous()
+    assert g_hist.reshape(-1, k).data_ptr() == g_hist.data_ptr()
+    for name, a, e in zip(("out", "user", "hist", "w"), got, want):
+        assert torch.equal(_bits(a), _bits(e)), name
+
+
+@pytest.mark.parametrize("kind", ["avg", "self_attn", "user_attn"])
+def test_loss_and_grads_give_the_plain_history_gradient(kind):
+    """``loss_and_grads`` on an int8 model with history: every gradient
+    and the loss hold the bits of autograd through the plain formulas, and
+    the ``avg`` history gradient reaches the row update row-major."""
+    cfg = tmf.MFConfig(num_users=USERS, num_items=ITEMS, emb_dim=K,
+                       num_negatives=N_NEG, history_len=H,
+                       aggregation_kind=kind, table_format="int8")
+    state = tmf.init_mf(0, cfg, device="cpu")
+    users, pos, hist, mask = (torch.as_tensor(x) for x in _batch(0, H))
+    negs = torch.as_tensor(
+        np.random.default_rng(6).integers(0, ITEMS, (B, N_NEG)))
+    p = state.params
+    rows = [tqz.gather_rows(p.user_table, users.long()),
+            tqz.gather_rows(p.item_table, pos.long()),
+            tqz.gather_rows(p.item_table, negs),
+            tqz.gather_rows(p.item_table, hist.long())]
+    engine = teng.resolve_engine(cfg)
+    loss, grads, agg_grads = tmf.loss_and_grads(rows, p.aggregator, mask, cfg,
+                                                engine)
+    leaves = [t.detach().requires_grad_() for t in rows]
+    agg_leaves = [t.detach().requires_grad_() for t in p.aggregator
+                  if t is not None]
+    plain = _plain_aggregate(tagg.AggregatorParams(*agg_leaves), leaves[0],
+                             leaves[3], mask, cfg.gate, kind)
+    want_loss = engine.loss_fn(plain, leaves[1], leaves[2], mu=cfg.mu,
+                               theta=cfg.theta, similarity=cfg.similarity)
+    want = torch.autograd.grad(want_loss, leaves + agg_leaves)
+    got = list(grads) + [g for g in agg_grads if g is not None]
+    assert torch.equal(_bits(loss), _bits(want_loss))
+    assert len(got) == len(want)
+    for i, (a, e) in enumerate(zip(got, want)):
+        assert torch.equal(_bits(a), _bits(e)), i
+    if kind == "avg":
+        assert grads[3].is_contiguous()
+
+
 def test_aggregate_refuses_unknown_kind():
     user, hist, mask, w, _ = _agg_inputs("avg")
     with pytest.raises(ValueError, match="unknown aggregation kind"):
